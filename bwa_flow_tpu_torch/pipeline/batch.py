@@ -1,0 +1,377 @@
+"""Batched device aligner — the device compute path of the pipeline.
+
+Port of bwa_flow_tpu/pipeline/batch.py (one device, single-end). Per
+batch:
+
+  1. device SMEM seeding with fused SA resolution (ops/smem_torch.py)
+  2. device SA probes for what the seed program did not resolve
+  3. host chaining + filters (ops/chain.py, exact bwa semantics)
+  4. wave extension: every read owns a chain2aln_tasks generator
+     (ops/region.py); each wave gathers at most one pending seed task per
+     read into a fixed-shape device batch (ops/chain2aln_torch.py, the
+     CUDA ksw_extend2 kernel on the card), runs it, and feeds results
+     back. Sequencing within a read (bwa's seed-containment skips) is
+     exact; parallelism comes from batching across reads.
+  5. host dedup/patch/primary marking + SAM.
+
+Tasks too large for the device shapes run on the host scalar kernel
+inline. A device error propagates and fails the run.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..index.fmindex import FMIndex
+from ..io.sam import Read, mem_reg2sam
+from ..models import golden
+from ..ops import chain as chainops
+from ..ops import fm as fmops
+from ..ops import region as regionops
+from ..ops import smem_torch
+from ..ops.chain2aln_torch import DescTaskBuffer
+from ..ops.fm_torch import DeviceFM, sa_batch
+from ..ops.probe_layout import sa_probe_layout
+from ..utils.opts import MEM_F_PRIMARY5, MemOpt
+
+SA_CHUNK = 65536   # SA probes per device LF-walk call
+
+
+def chain_read(opt: MemOpt, fm: FMIndex, seq, intvs, lut: dict) -> list:
+    """Seeds -> filtered chains of one read; `lut` maps (x0, k) to the
+    occurrence's SA value."""
+    if len(seq) < opt.min_seed_len:
+        return []
+    chains = chainops.mem_chain(opt, fm, len(seq), intvs,
+                                sa_lookup=lambda x0, k: lut[(x0, k)])
+    chains = chainops.mem_chain_flt(opt, chains)
+    chainops.mem_flt_chained_seeds(opt, fm, len(seq), seq, chains)
+    return chains
+
+
+def dedup_regs(opt: MemOpt, fm: FMIndex, seq, regs) -> list:
+    """Sort, dedup and patch one read's regions; flag ALT hits."""
+    regs = regionops.mem_sort_dedup_patch(
+        opt, fm, seq, regs, golden.make_patch_scorer(opt, fm, seq))
+    for p in regs:
+        if p.rid >= 0 and fm.bns.anns[p.rid].is_alt:
+            p.is_alt = 1
+    return regs
+
+
+def se_sam(opt: MemOpt, fm: FMIndex, read: Read, regs, read_id: int,
+           rg_id: str) -> None:
+    """Primary marking and the SAM records of one single-end read."""
+    regionops.mem_mark_primary_se(opt, regs, read_id)
+    if opt.flag & MEM_F_PRIMARY5:
+        regionops.mem_reorder_primary5(opt.T, regs)
+    read.sam = ""
+    mem_reg2sam(opt, fm, read, regs, 0, None, rg_id)
+
+
+class BatchAligner:
+    """Device batch aligner on one torch device (``cuda`` by default).
+
+    `wave_cap` bounds tasks per device extension call; `smem_L` is the
+    padded read length of the seeding machine (longer reads are seeded
+    on the host)."""
+
+    def __init__(self, opt: MemOpt, fm: FMIndex, smem_L: int = 160,
+                 wave_cap: int = 4096, qmax: int = 160, tmax: int = 512,
+                 device=None):
+        self.device = resolve_device(device)
+        self.opt = opt
+        self.fm = fm
+        self.dfm = DeviceFM.from_host(fm, self.device)
+        self.smem_L = smem_L
+        # two buffers: wave streams ping-pong
+        self.bufs = [DescTaskBuffer(wave_cap, qmax, tmax),
+                     DescTaskBuffer(wave_cap, qmax, tmax)]
+        self.buf = self.bufs[0]
+        self._dev_reads = None
+        self._dev_reads_n = 0
+        self._stats_lock = threading.Lock()
+        self.stats = {"reads": 0, "sa_host_redo": 0,
+                      "ext_tasks_device": 0, "ext_tasks_host": 0,
+                      "waves": 0, "band_retries": 0,
+                      "seed_batches": 0, "seed_s": 0.0}
+
+    def _stat(self, name: str, delta=1) -> None:
+        with self._stats_lock:
+            self.stats[name] = self.stats.get(name, 0) + delta
+
+    # ------------------------------------------------------------------
+    def resolve_sa_flat(self, all_intvs, seed_handle: dict | None = None):
+        """SA values of every (interval, occurrence) probe of the batch;
+        returns (vals int64[NO], off int64[n+1], owners) in
+        sa_probe_layout order. Reads whose values the seed program
+        resolved (fused SA) need no probe; the rest go through batched
+        device LF walks, and walk overflows through the host bwt_sa."""
+        rows, offs, owners = sa_probe_layout(self.opt, all_intvs,
+                                             build_owners=True)
+        vals_all = np.empty(len(rows), dtype=np.int64)
+        if not len(rows):
+            return vals_all, offs, owners
+        need = None
+        sav = (seed_handle or {}).get("sa_vals")
+        if sav is not None:
+            need_idx = []
+            for r in range(len(all_intvs)):
+                lo, hi = int(offs[r]), int(offs[r + 1])
+                v = sav[r] if r < len(sav) else None
+                if v is not None and len(v) == hi - lo:
+                    vals_all[lo:hi] = v
+                else:
+                    need_idx.append((lo, hi))
+            if not need_idx:
+                return vals_all, offs, owners
+            need = np.concatenate(
+                [np.arange(lo, hi) for lo, hi in need_idx])
+            rows = rows[need]
+        # sub-2^31 genomes walk the LF chain in int32 on a narrow view
+        narrow = self.fm.seq_len < 2**31 and not smem_torch.FORCE_WIDE
+        dfm_sa = self.dfm.narrow() if narrow else self.dfm
+        pdt = np.int32 if narrow else np.int64
+        for off in range(0, len(rows), SA_CHUNK):
+            chunk = rows[off:off + SA_CHUNK]
+            width = 4096
+            while width < len(chunk):
+                width <<= 1
+            pad = np.zeros(width, dtype=pdt)
+            pad[:len(chunk)] = chunk
+            sa_t, ovf_t = sa_batch(dfm_sa, torch.as_tensor(
+                pad, device=self.device), 256, int(self.fm.sa_intv))
+            vals = sa_t[:len(chunk)].cpu().numpy().copy()
+            ovf = ovf_t[:len(chunk)].cpu().numpy()
+            for j in np.nonzero(ovf)[0]:
+                vals[j] = fmops.bwt_sa(self.fm, int(chunk[j]))
+                self._stat("sa_host_redo")
+            if need is None:
+                vals_all[off:off + len(chunk)] = vals
+            else:
+                vals_all[need[off:off + len(chunk)]] = vals
+        return vals_all, offs, owners
+
+    # ------------------------------------------------------------------
+    def seeds_dispatch(self, seqs: list[np.ndarray]) -> dict:
+        """Stage 1 (device SMEM seeding): uploads the padded batch and
+        runs the seed program on it; the handle feeds seeds_collect."""
+        q, qlen = smem_torch.pad_reads(seqs, self.smem_L)
+        q_dev = torch.as_tensor(q, device=self.device)
+        qlen_dev = torch.as_tensor(qlen, device=self.device)
+        t0 = time.perf_counter()
+        sub = smem_torch.seed_dispatch(self.opt, self.fm, self.dfm, seqs,
+                                       L=self.smem_L,
+                                       padded=(q_dev, qlen_dev))
+        self._stat("seed_s", time.perf_counter() - t0)
+        return dict(n_reads=len(seqs), q_dev=q_dev, sub=sub)
+
+    def seeds_collect(self, h: dict):
+        """Finish a seeds_dispatch as an array-native IntvBatch; pins the
+        handle's padded read batch as the device-resident reads of the
+        following extension waves."""
+        self._stat("reads", h["n_reads"])
+        self._dev_reads = h["q_dev"]
+        self._dev_reads_n = h["n_reads"]
+        sub = h["sub"]
+        t0 = time.perf_counter()
+        batch = smem_torch.seed_collect_batch(sub)
+        self._stat("seed_s", time.perf_counter() - t0)
+        self._stat("seed_batches")
+        h["sa_vals"] = sub.get("sa_vals") or [None] * len(sub["reads"])
+        return batch
+
+    @staticmethod
+    def _luts_from(owners, vals, n):
+        luts = [dict() for _ in range(n)]
+        for (ridx, x0, k), v in zip(owners, vals):
+            luts[ridx][(x0, k)] = int(v)
+        return luts
+
+    def chain_reads(self, seqs, all_intvs, sa_flat):
+        """Stage 3: host chaining (exact bwa semantics)."""
+        vals, _, owners = sa_flat
+        luts = self._luts_from(owners, vals, len(seqs))
+        return [chain_read(self.opt, self.fm, s, iv, lut)
+                for s, iv, lut in zip(seqs, all_intvs, luts)]
+
+    def align_regs(self, seqs: list[np.ndarray]) -> list:
+        """Seed + chain + extend + dedup for a batch of encoded reads;
+        returns per-read AlnReg lists (mem_align1_core over a batch)."""
+        opt, fm = self.opt, self.fm
+        h = self.seeds_dispatch(seqs)
+        all_intvs = self.seeds_collect(h)
+        sa_flat = self.resolve_sa_flat(all_intvs, h)
+        all_chains = self.chain_reads(seqs, all_intvs, sa_flat)
+        all_regs = self.extend_waves(seqs, all_chains)
+        return [dedup_regs(opt, fm, seq, regs)
+                for seq, regs in zip(seqs, all_regs)]
+
+    def extend_waves(self, seqs: list[np.ndarray], all_chains) -> list:
+        """Stage 4: cross-read wave extension on the device (no dedup).
+
+        Each wave runs ONE banded try per extension side; bwa's band
+        doubling (bwamem.c:737-744) is driven from here: a task whose
+        max_off crossed the threshold is re-enqueued into a later wave
+        with the doubled band (stage 1 = redo left@2w+right, stage 2 =
+        right-only@2w with the saved left half)."""
+        opt, fm = self.opt, self.fm
+        all_regs = [[] for _ in seqs]
+
+        def read_gen(ridx):
+            for c in all_chains[ridx]:
+                yield from regionops.chain2aln_tasks(
+                    opt, fm, len(seqs[ridx]), seqs[ridx], c, all_regs[ridx])
+
+        gens = {}
+        pending = {}  # ridx -> [task, stage, saved_left_6tuple|None]
+        for ridx in range(len(seqs)):
+            g = read_gen(ridx)
+            t = next(g, None)
+            if t is not None:
+                gens[ridx] = g
+                pending[ridx] = [t, 0, None]
+
+        def dev_idx(ridx):
+            """Device read index of a task's read; -1 when the read was
+            not device-seeded (too long for the smem_L bucket)."""
+            if (self._dev_reads is None or ridx >= self._dev_reads_n
+                    or len(seqs[ridx]) > self.smem_L):
+                return -1
+            return ridx
+
+        def advance(ridx, result):
+            """Feed a result; pull the next device-sized task (running
+            oversized ones on the host inline). False when done."""
+            g = gens[ridx]
+            res = result
+            while True:
+                try:
+                    t = g.send(res)
+                except StopIteration:
+                    del gens[ridx]
+                    del pending[ridx]
+                    return False
+                if self._fits(t, dev_idx(ridx)):
+                    pending[ridx] = [t, 0, None]
+                    return True
+                self._stat("ext_tasks_host")
+                res = regionops.run_task_host(opt, t)
+
+        # bootstrap: oversized first tasks
+        for ridx in list(pending):
+            t = pending[ridx][0]
+            if not self._fits(t, dev_idx(ridx)):
+                self._stat("ext_tasks_host")
+                advance(ridx, regionops.run_task_host(opt, t))
+
+        W = opt.w
+        RETRY_OFF = (W >> 1) + (W >> 2)   # max_off threshold at try 0
+
+        def handle(ridx, row):
+            """Apply one wave result: finish the task or re-enqueue a
+            band-doubling retry."""
+            entry = pending[ridx]
+            t, stage, lpart = entry
+            (ls, lq, lt_, lg, lgs, lmo,
+             rs_, rq, rt, rg, rgs, rmo) = row
+            has_left = len(t.q_left) > 0
+            has_right = len(t.q_right) > 0
+            if stage == 0 and has_left and lmo >= RETRY_OFF:
+                entry[1] = 1      # redo left@2w (+right with new h0)
+                self._stat("band_retries")
+                return
+            if stage in (0, 1):
+                aw0 = (W << 1) if (stage == 1 and has_left) else W
+                lfinal = (ls, lq, lt_, lg, lgs, aw0)
+                sc0 = ls
+                if has_right and rs_ != sc0 and rmo >= RETRY_OFF:
+                    entry[1] = 2  # right-only retry @2w, h0 = sc0
+                    entry[2] = lfinal
+                    self._stat("band_retries")
+                    return
+                rfinal = (rs_, rq, rt, rg, rgs, W)
+            else:  # stage 2: right half from this row, left half saved
+                lfinal = lpart
+                rfinal = (rs_, rq, rt, rg, rgs, W << 1)
+            advance(ridx, lfinal + rfinal)
+
+        from ..utils.trace import GLOBAL as tracer
+        # two wave streams over disjoint reads: while one stream's result
+        # is copied back and its next wave packed, the other computes
+        busy: set = set()
+
+        def pack_and_run(buf):
+            with tracer.span("wave.pack"):
+                buf.reset()
+                slots = []
+                for ridx, (t, stage, lpart) in pending.items():
+                    if ridx in busy:
+                        continue
+                    if stage == 0:
+                        i = buf.add(t, dev_idx(ridx), W, W)
+                    elif stage == 1:
+                        i = buf.add(t, dev_idx(ridx), W << 1, W)
+                    else:
+                        i = buf.add(t, dev_idx(ridx), W, W << 1,
+                                    skip_left=True, h0=lpart[0])
+                    if i < 0:
+                        break  # buffer full: the next wave takes the rest
+                    slots.append(ridx)
+            if not slots:
+                return None
+            busy.update(slots)
+            with tracer.span("wave.dispatch"):
+                out = buf.run_async(opt, self.dfm, self._dev_reads,
+                                    self.smem_L)
+            self._stat("waves")
+            self._stat("ext_tasks_device", len(slots))
+            return slots, out
+
+        def apply(entry):
+            slots, out = entry
+            with tracer.span("wave.fetch"):
+                rows = out.cpu().numpy().T.tolist()
+            with tracer.span("wave.apply"):
+                for i, ridx in enumerate(slots):
+                    busy.discard(ridx)
+                    handle(ridx, rows[i])
+
+        streams = [pack_and_run(self.bufs[0]), pack_and_run(self.bufs[1])]
+        s = 0
+        while streams[0] is not None or streams[1] is not None:
+            if streams[s] is not None:
+                apply(streams[s])
+                streams[s] = None
+                streams[s] = pack_and_run(self.bufs[s])
+            o = 1 - s
+            if streams[o] is None:
+                streams[o] = pack_and_run(self.bufs[o])
+            s = o
+        return all_regs
+
+    def _fits(self, t, read_idx: int) -> bool:
+        """Device-shape check for a descriptor task. Target spans count
+        clamped to qlen_side + 2w + 1, the most any band-doubling retry
+        can reach, so a task that fits at try 0 fits every retry."""
+        W2 = (self.opt.w << 1) + 1
+        qr = t.l_query - (t.qbeg + t.slen)
+        return (read_idx >= 0
+                and t.qbeg <= self.buf.qmax
+                and qr <= self.buf.qmax
+                and min(t.rbeg - t.rmax0, t.qbeg + W2) <= self.buf.tmax
+                and min(t.rmax1 - (t.rbeg + t.slen),
+                        qr + W2) <= self.buf.tmax)
+
+    # ------------------------------------------------------------------
+    def align_se(self, reads: list[Read], n_processed: int = 0,
+                 rg_id: str = "") -> None:
+        """Batched single-end alignment: fills each read's .sam."""
+        all_regs = self.align_regs([s.seq for s in reads])
+        for i, (s, regs) in enumerate(zip(reads, all_regs)):
+            se_sam(self.opt, self.fm, s, regs, n_processed + i, rg_id)

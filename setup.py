@@ -11,7 +11,7 @@ from setuptools import Extension, setup
 setup(
     name="bwa_flow_tpu",
     version="0.1.0",
-    packages=["bwa_flow_tpu"],
+    packages=["bwa_flow_tpu", "bwa_flow_tpu_torch"],
     ext_modules=[
         Extension(
             "bwa_flow_tpu._native",
