@@ -1,8 +1,8 @@
 """Command-line front-end: `bwa_flow_tpu_torch index|mem`.
 
-Port of bwa_flow_tpu/cli.py for single-end `mem`. Options of later
-slices (paired-end input, --sort, multi-process runs) exit with a
-message.
+Port of bwa_flow_tpu/cli.py for `mem` on single-end and paired-end
+reads (two FASTQs, or one interleaved with -p). Options of later slices
+(--sort, multi-process runs) exit with a message.
 
 Mirrors the reference's option pipeline — gflags mirrored into a synthetic
 argv re-parsed by bwa's getopt (src/preprocess.cpp:70-389)
@@ -22,8 +22,9 @@ from .index.build import index_fasta
 from .index.io import load_index, save_index
 from .io.fastq import read_batches
 from .utils.opts import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
-                         MEM_F_NO_RESCUE, MEM_F_PRIMARY5, MEM_F_REF_HDR,
-                         MEM_F_SMARTPE, MEM_F_SOFTCLIP, MemOpt)
+                         MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_PRIMARY5,
+                         MEM_F_REF_HDR, MEM_F_SMARTPE, MEM_F_SOFTCLIP,
+                         MemOpt)
 
 
 def _mem_parser() -> argparse.ArgumentParser:
@@ -189,6 +190,25 @@ def build_opt(args) -> MemOpt:
     return opt
 
 
+def parse_insert_override(spec: str):
+    """-I FLOAT[,FLOAT[,INT[,INT]]] (preprocess.cpp / fastmap.c semantics):
+    mean[,std[,max[,min]]] for the FR orientation."""
+    from .ops.pe import PeStat
+    parts = spec.split(",")
+    mean = float(parts[0])
+    std = float(parts[1]) if len(parts) > 1 else mean * 0.1
+    high = int(parts[2]) if len(parts) > 2 else int(mean + 4.0 * std + 0.499)
+    low = int(parts[3]) if len(parts) > 3 else max(
+        int(mean - 4.0 * std + 0.499), 1)
+    pes = [PeStat() for _ in range(4)]
+    pes[1].failed = 0
+    pes[1].avg, pes[1].std = mean, std
+    pes[1].high, pes[1].low = high, low
+    for i in (0, 2, 3):
+        pes[i].failed = 1
+    return pes
+
+
 def sam_header(fm, rg_line, extra_lines, argv) -> str:
     """bwa_print_sam_hdr (bwa/bwa.c:380-401): @SQ lines carry AH:* for
     ALT contigs and are suppressed entirely when -H supplied @SQ lines;
@@ -219,13 +239,11 @@ def _rg_id(rg_line) -> str:
     return ""
 
 
-_LATER = "is not ported to bwa_flow_tpu_torch yet (single-end mem only)"
+_LATER = "is not ported to bwa_flow_tpu_torch yet"
 
 
 def main_mem(argv: list[str]) -> int:
     args = _mem_parser().parse_args(argv)
-    if len(args.fastq) > 1 or args.smart_pairing:
-        raise SystemExit(f"[E] paired-end alignment {_LATER}")
     if args.sort:
         raise SystemExit(f"[E] --sort {_LATER}")
     if args.nprocs is not None or args.proc_id is not None \
@@ -236,6 +254,11 @@ def main_mem(argv: list[str]) -> int:
     fm = load_index(args.ref, ignore_alt=args.ignore_alt)
     print(f"[M::mem] loaded index {args.ref} in {time.time()-t0:.1f}s",
           file=sys.stderr)
+    pes0 = parse_insert_override(args.insert_override) \
+        if args.insert_override else None
+    paired = len(args.fastq) > 1 or args.smart_pairing
+    if paired:
+        opt.flag |= MEM_F_PE
     rg = _rg_id(args.rg_line)
     hdr_extra = None
     if args.header_insert:
@@ -274,9 +297,12 @@ def main_mem(argv: list[str]) -> int:
         print(f"[M::mem] processed {stats['n']} reads "
               f"({stats['n']/dt:.0f} reads/s)", file=sys.stderr)
 
+    fq2 = args.fastq[1] if len(args.fastq) > 1 else None
+
     def batches():
-        it = read_batches(args.fastq[0], None,
-                          chunk_bp=opt.chunk_size * opt.n_threads)
+        it = read_batches(args.fastq[0], fq2,
+                          chunk_bp=opt.chunk_size * opt.n_threads,
+                          interleaved=args.smart_pairing)
         for batch in it:
             if not args.append_comment:
                 # FASTA/Q comments reach the output only with -C
@@ -284,6 +310,7 @@ def main_mem(argv: list[str]) -> int:
                 for r in batch:
                     r.comment = None
             if args.batch_reads:
+                # an odd cap splits the mates of a pair, as in the JAX CLI
                 for i in range(0, len(batch), args.batch_reads):
                     yield batch[i:i + args.batch_reads]
             else:
@@ -293,13 +320,17 @@ def main_mem(argv: list[str]) -> int:
         from .models import golden
         for chunk in batches():
             base = chunk[0].id if chunk else 0
-            golden.align_se(opt, fm, chunk, base, rg)
+            if paired:
+                golden.align_pe(opt, fm, chunk, base, pes0, rg)
+            else:
+                golden.align_se(opt, fm, chunk, base, rg)
             emit(chunk)
     else:
         from .pipeline.dataflow import AlignPipeline
-        pipe = AlignPipeline(opt, fm, n_workers=max(0, args.n_threads - 1),
-                             rg_id=rg, mp_context=args.mp_context,
-                             device=args.device)
+        pipe = AlignPipeline(opt, fm, paired=paired,
+                             n_workers=max(0, args.n_threads - 1),
+                             rg_id=rg, pes0=pes0,
+                             mp_context=args.mp_context, device=args.device)
         try:
             pipe.run(batches(), emit)
         finally:

@@ -12,6 +12,7 @@ import numpy as np
 from ..index.fmindex import FMIndex
 from ..io.sam import Read, mem_reg2sam
 from ..ops import chain as chainops
+from ..ops import pe as peops
 from ..ops import region as regionops
 from ..ops import smem as smemops
 from ..ops.align import gen_cigar2
@@ -57,3 +58,19 @@ def align_se(opt: MemOpt, fm: FMIndex, reads: list[Read],
             regionops.mem_reorder_primary5(opt.T, regs)
         s.sam = ""
         mem_reg2sam(opt, fm, s, regs, 0, None, rg_id)
+
+
+def align_pe(opt: MemOpt, fm: FMIndex, reads: list[Read],
+             n_processed: int = 0, pes0=None, rg_id: str = "") -> None:
+    """Paired-end: interleaved reads; mirrors mem_process_seqs
+    (bwamem.c:1220-1249): per-batch pestat inference, then pairing+SAM."""
+    regs = [mem_align1_core(opt, fm, s.seq) for s in reads]
+    pes = pes0 if pes0 is not None else mem_pestat_batch(opt, fm, regs)
+    for i in range(len(reads) >> 1):
+        j = i << 1
+        peops.mem_sam_pe(opt, fm, pes, (n_processed >> 1) + i,
+                         reads[j:j + 2], regs[j:j + 2], rg_id)
+
+
+def mem_pestat_batch(opt: MemOpt, fm: FMIndex, regs):
+    return peops.mem_pestat(opt, fm.bns.l_pac, regs)

@@ -6,8 +6,9 @@ reversed reference window), then the right extension seeded with the
 left score (mem_chain2aln, bwa/bwamem.c:716-779). The query and
 reference windows are assembled on the device from the resident read
 batch and the packed reference, and each side runs one banded
-ksw_extend2 — the CUDA kernel on the card, its plain PyTorch version on
-the CPU. The host applies bwa's local/to-end decision, the band-doubling
+ksw_extend2 — a CUDA kernel on the card, its plain PyTorch version on
+the CPU; the int32 or the int16 one as fits_i16 selects, as in the JAX
+package. The host applies bwa's local/to-end decision, the band-doubling
 retries and the coordinates (pipeline/batch.py).
 """
 
@@ -22,14 +23,16 @@ I32 = torch.int32
 I64 = torch.int64
 
 
-def _extend_impl(q: torch.Tensor):
-    """The extension core for tensors on q's device: the CUDA kernel on a
-    CUDA device, the plain PyTorch version on the CPU. Nothing else
-    decides this."""
+def _extend_impl(q: torch.Tensor, use16: bool = False):
+    """The extension core for tensors on q's device: a CUDA kernel on a
+    CUDA device, its plain PyTorch version on the CPU; the int16 one of
+    each when use16. Nothing else decides this."""
     if q.device.type == "cuda":
-        return extend_cuda.extend_core_cuda
+        return (extend_cuda.extend_core_cuda16 if use16
+                else extend_cuda.extend_core_cuda)
     if q.device.type == "cpu":
-        return extend_torch.extend_core
+        return (extend_torch.extend_core16 if use16
+                else extend_torch.extend_core)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -76,7 +79,8 @@ def _pac_window_batch(dfm, start: torch.Tensor, step_down: bool, N: int
 def seed_extend_desc_batch(qmax: int, tmax: int, L_reads: int, dfm,
                            reads: torch.Tensor, desc: torch.Tensor,
                            mat: torch.Tensor, o_del, e_del, o_ins, e_ins,
-                           pen_clip5, pen_clip3, zdrop) -> torch.Tensor:
+                           pen_clip5, pen_clip3, zdrop, use16: bool = False
+                           ) -> torch.Tensor:
     """Coupled seed extension from task DESCRIPTORS.
 
     reads: [B_reads, L_reads] (0..4, the seeding batch); desc: int64[11,
@@ -84,8 +88,10 @@ def seed_extend_desc_batch(qmax: int, tmax: int, L_reads: int, dfm,
     skip_left). Each side runs ONE banded extension at its per-lane
     width; bwa's rare band-doubling retry is re-enqueued by the host
     driver. skip_left lanes are right-only retries whose h0 carries the
-    saved left score. Returns int32[12, T]: (lscore, lqle, ltle, lgtle,
-    lgscore, lmax_off, rscore, rqle, rtle, rgtle, rgscore, rmax_off)."""
+    saved left score. use16 runs both sides on the int16 core (the
+    caller checks fits_i16). Returns int32[12, T]: (lscore, lqle, ltle,
+    lgtle, lgscore, lmax_off, rscore, rqle, rtle, rgtle, rgscore,
+    rmax_off)."""
     dev = desc.device
     T = desc.shape[1]
     read_idx = desc[0].to(I64)
@@ -129,7 +135,7 @@ def seed_extend_desc_batch(qmax: int, tmax: int, L_reads: int, dfm,
     tr_t = _pac_window_batch(dfm, re_abs, False, tmax)
     tr_t = torch.where(jt < tr_n[:, None], tr_t, 0)
 
-    ext = _extend_impl(ql_q)
+    ext = _extend_impl(ql_q, use16)
     lres = ext(qmax, tmax, ql_q.contiguous(), ql_n.contiguous(),
                tl_t.contiguous(), tl_n.contiguous(), h0.contiguous(), mat,
                o_del, e_del, o_ins, e_ins, wl, pen_clip5, zdrop)
@@ -204,9 +210,13 @@ class DescTaskBuffer:
     def run_async(self, opt, dfm, reads_dev, L_reads: int) -> torch.Tensor:
         """Enqueue the wave over the filled slots; returns the device
         result tensor int32[12, n] (its host copy waits for the
-        device)."""
+        device). The int16 core runs when fits_i16 selects it for the
+        largest starting score a task can carry, L_reads * a."""
         dev = reads_dev.device
         desc = torch.as_tensor(self.desc[:, :max(self.n, 1)], device=dev)
+        use16 = extend_cuda.fits_i16(self.qmax, L_reads * int(opt.a),
+                                     int(opt.mat.max()),
+                                     max(opt.pen_clip5, opt.pen_clip3, 0))
         return seed_extend_desc_batch(self.qmax, self.tmax, L_reads, dfm,
                                       reads_dev, desc,
-                                      *self._params(opt, dev))
+                                      *self._params(opt, dev), use16=use16)

@@ -1,45 +1,74 @@
-"""Wrapper of the hand-written CUDA ksw_extend2 kernel (csrc/ksw_extend.cu).
+"""Wrappers of the hand-written CUDA ksw_extend2 kernels.
 
-Replaces the Pallas TPU kernel bwa_flow_tpu/ops/extend_pallas.py
-(_extend_pallas with the _make_kernel body), with the signature and
-outputs of the plain version ops/extend_torch.py::extend_core.
+extend_core_cuda (csrc/ksw_extend.cu) replaces the Pallas TPU kernel
+bwa_flow_tpu/ops/extend_pallas.py::_extend_pallas with the _make_kernel
+body; extend_core_cuda16 (csrc/ksw_extend16.cu) replaces the same call
+with the int16 body _make_kernel16, which the wave path selects through
+fits_i16. Both take the signature and give the outputs of the plain
+version ops/extend_torch.py::extend_core (extend_core16 for the int16
+kernel).
 
-What bounds it on the H100: int32 operations over the banded DP cells
-(about 20 per cell, plus two scratch loads and stores). The design is
-the simple exact one: one thread per task runs bwa's scalar row loop,
-its H/E rows in a task-minor scratch buffer so a warp's accesses are
-coalesced, and each thread stops when its own task breaks or reaches
-tlen. That leaves the card latency-bound with B/32 warps; a warp per
-task with a prefix-max F scan is the later fast version.
+What bounds them on the H100: operations over the banded DP cells (10
+per cell from the recurrence; the int16 rows allow two cells per packed
+32-bit operation). The design is the simple exact one: one thread per
+task runs bwa's scalar row loop and stops when its own task breaks or
+reaches tlen. The int32 kernel keeps its H/E rows in a task-minor global
+scratch buffer (a warp's accesses coalesce); the int16 kernel keeps them
+in shared memory. Both leave the card latency-bound with B/32 warps; a
+warp per task with a prefix-max F scan is the later fast version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
 from .. import _build
 from .extend_torch import _as_int
 
-# launches of the kernel (a plain count; chip_smoke.py resets and reads it)
+# launches of each kernel (plain counts; chip_smoke.py resets and reads
+# them)
 n_launches = 0
+n_launches16 = 0
 
-_FN = None
+_FNS: dict = {}
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        lib = _build.load("ksw_extend")
-        fn = lib.ksw_extend2_launch
+def fits_i16(qmax: int, h0max: int, max_mat: int, end_bonus: int) -> bool:
+    """True when the int16 kernel is selected and exact for this scoring:
+    only with BWA_TPU_EXTEND16 set (read at call time; off by default),
+    and only when every DP row value stays inside int16: cells are at
+    most h0max (the largest starting score a task can carry, L_reads*a
+    in the wave path) plus (qmax+2)*max_mat of match gain plus the end
+    bonus, and the F-scan ramp stays above the int16 floor. The same
+    gate and bound as bwa_flow_tpu/ops/extend_pallas.py::fits_i16."""
+    if not os.environ.get("BWA_TPU_EXTEND16"):
+        return False
+    return i16_exact(qmax, h0max, max_mat, end_bonus)
+
+
+def i16_exact(qmax: int, h0max: int, max_mat: int, end_bonus: int) -> bool:
+    """The bound of fits_i16 without its gate: the int16 kernel and its
+    plain version are exact on inputs that satisfy it."""
+    return h0max + (qmax + 2) * max(max_mat, 1) + max(end_bonus, 0) \
+        < (1 << 13) - 256
+
+
+def _fn(name: str, entry: str, n_ptr: int):
+    """ctypes function `entry` of csrc/<name>.cu: 3 ints, 7 pointers, 6
+    ints, then n_ptr pointers (scratch, out, stream)."""
+    if name not in _FNS:
+        lib = _build.load(name)
+        fn = getattr(lib, entry)
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3)
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * n_ptr)
         fn.restype = ctypes.c_int
         lib.ksw_error_string.argtypes = [ctypes.c_int]
         lib.ksw_error_string.restype = ctypes.c_char_p
-        _FN = (fn, lib.ksw_error_string)
-    return _FN
+        _FNS[name] = (fn, lib.ksw_error_string)
+    return _FNS[name]
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
@@ -55,18 +84,11 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
-def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
-                     o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop
-                     ) -> tuple[torch.Tensor, ...]:
-    """Batched ksw_extend2 on the card. q int32[B, qmax], t int32[B,
-    tmax], qlen/tlen/h0 int32[B], mat int32[5, 5], all contiguous on one
-    CUDA device; `w` an int or int32[B]; other scalars ints or 0-d
-    tensors. Returns 6 int32[B] tensors (score, qle, tle, gtle, gscore,
-    max_off). Launches on the current stream and does not synchronise."""
-    global n_launches
+def _checked(who: str, qmax: int, tmax: int, q, qlen, t, tlen, h0, mat, w):
+    """Validate the kernels' inputs; returns (device, B, w as int32[B])."""
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
-        raise ValueError("extend_core_cuda: tensors must be on a CUDA "
-                         "device (the CPU runs extend_torch.extend_core)")
+        raise ValueError(f"{who}: tensors must be on a CUDA device (the "
+                         "CPU runs the plain version in extend_torch)")
     dev = q.device
     B = q.shape[0]
     _check("q", q, (B, qmax), dev)
@@ -78,18 +100,60 @@ def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
         _check("w", w, (B,), dev)
     else:
         w = torch.full((B,), _as_int(w), dtype=torch.int32, device=dev)
-    eh = torch.empty((2, qmax + 1, B), dtype=torch.int32, device=dev)
-    out = torch.empty((6, B), dtype=torch.int32, device=dev)
-    fn, err = _fn()
+    return dev, B, w
+
+
+def _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, *ptrs) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(B, qmax, tmax, q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), h0.data_ptr(), w.data_ptr(), mat.data_ptr(),
             _as_int(o_del), _as_int(e_del), _as_int(o_ins), _as_int(e_ins),
-            _as_int(end_bonus), _as_int(zdrop), eh.data_ptr(),
-            out.data_ptr(), stream)
+            _as_int(end_bonus), _as_int(zdrop), *ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"ksw_extend2 launch failed: "
                            f"{err(rc).decode()} ({rc})")
+
+
+def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
+                     o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop
+                     ) -> tuple[torch.Tensor, ...]:
+    """Batched ksw_extend2 on the card. q int32[B, qmax], t int32[B,
+    tmax], qlen/tlen/h0 int32[B], mat int32[5, 5], all contiguous on one
+    CUDA device; `w` an int or int32[B]; other scalars ints or 0-d
+    tensors. Returns 6 int32[B] tensors (score, qle, tle, gtle, gscore,
+    max_off). Launches on the current stream and does not synchronise."""
+    global n_launches
+    dev, B, w = _checked("extend_core_cuda", qmax, tmax, q, qlen, t, tlen,
+                         h0, mat, w)
+    eh = torch.empty((2, qmax + 1, B), dtype=torch.int32, device=dev)
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    fn, err = _fn("ksw_extend", "ksw_extend2_launch", 3)
+    _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, eh.data_ptr(),
+            out.data_ptr())
     n_launches += 1
+    return tuple(out[k] for k in range(6))
+
+
+def extend_core_cuda16(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
+                       o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop
+                       ) -> tuple[torch.Tensor, ...]:
+    """Batched ksw_extend2 on the card with int16 DP rows in shared
+    memory; the signature, checks and outputs of extend_core_cuda.
+
+    Precondition: i16_exact(qmax, max(h0), mat.max(), end_bonus), the
+    bound of fits_i16; outside it the rows overflow and the results are
+    wrong. The kernel does not check it. The launch fails, and this
+    raises, when the rows of a block, 2 x (qmax+1) x 32 int16, exceed the
+    227 KB of shared memory a block may have."""
+    global n_launches16
+    dev, B, w = _checked("extend_core_cuda16", qmax, tmax, q, qlen, t,
+                         tlen, h0, mat, w)
+    out = torch.empty((6, B), dtype=torch.int32, device=dev)
+    fn, err = _fn("ksw_extend16", "ksw_extend2_i16_launch", 2)
+    _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out.data_ptr())
+    n_launches16 += 1
     return tuple(out[k] for k in range(6))

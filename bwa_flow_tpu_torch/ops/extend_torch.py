@@ -8,7 +8,9 @@ column, z-drop with del/ins asymmetry, to-end gscore, last-argmax ties
 for (max_i, max_j) and the post-row band shrink — as one loop over
 target rows with every per-lane scalar held as a [B] tensor, so early
 exits become freeze masks. The intra-row F dependency is a decayed
-prefix max (torch.cummax).
+prefix max (torch.cummax). With row_dtype=torch.int16 it is also the
+plain version of the int16 kernel (extend_cuda.extend_core_cuda16): the
+DP rows are int16, as in the Pallas body _make_kernel16.
 
 Port of bwa_flow_tpu/ops/extend_jax.py::extend_core; the output
 contract is the task 6-tuple (score, qle, tle, gtle, gscore, max_off).
@@ -19,6 +21,7 @@ from __future__ import annotations
 import torch
 
 NEG = -(1 << 30)
+NEG16 = -(1 << 13)   # the F-scan floor of the int16 rows
 # rows between the host-side "every lane finished" checks (each check is
 # a device sync; finished lanes are frozen, so extra rows are no-ops)
 _CHECK_EVERY = 32
@@ -51,7 +54,8 @@ def extend_core(qmax: int, tmax: int,
                 target: torch.Tensor, tlen: torch.Tensor,
                 h0: torch.Tensor, mat: torch.Tensor,
                 o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop,
-                stats: dict | None = None) -> tuple[torch.Tensor, ...]:
+                stats: dict | None = None, row_dtype=torch.int32
+                ) -> tuple[torch.Tensor, ...]:
     """Batched ksw_extend2 on any device.
 
     query: int32[B, qmax] (0..4), target: int32[B, tmax];
@@ -61,7 +65,14 @@ def extend_core(qmax: int, tmax: int,
     gscore, max_off), each int32[B]; degenerate lanes (qlen == 0 or
     tlen == 0) give (h0, 0, 0, 0, -1, 0). With `stats`, adds the number
     of banded DP cells the inputs need to stats["cells"] (the work
-    measure of the kernel's bound)."""
+    measure of the kernel's bound).
+
+    row_dtype=torch.int16 keeps the DP rows (H, E, the query profile and
+    every [B, qmax] temporary) in int16 and the per-lane carries in
+    int32, as the Pallas body _make_kernel16 does; it is exact while
+    extend_cuda.i16_exact holds for the inputs."""
+    rdt = row_dtype
+    neg = NEG16 if rdt == torch.int16 else NEG
     dev = query.device
     i32 = torch.int32
     B = query.shape[0]
@@ -80,18 +91,19 @@ def extend_core(qmax: int, tmax: int,
     wv = band_cap(qlen, w, mat, o_del, e_del, o_ins, e_ins, end_bonus)
 
     # query profile for all 5 target symbols: qp[b, c, j] = mat[c, q[b, j]]
-    qp = mat[:, query.long().clamp(0, 4)].permute(1, 0, 2)  # [B, 5, qmax]
+    qp = mat.to(rdt)[:, query.long().clamp(0, 4)].permute(1, 0, 2)
 
-    jcol = torch.arange(qmax + 1, dtype=i32, device=dev)[None, :]
-    jq = torch.arange(qmax, dtype=i32, device=dev)[None, :]
+    jcol = torch.arange(qmax + 1, dtype=rdt, device=dev)[None, :]
+    jq = torch.arange(qmax, dtype=rdt, device=dev)[None, :]
+    h0r = h0.to(rdt)
 
     # first row of H (bwa/ksw.c:390-396): ehH[0]=h0; ehH[j>=1] =
     # max(h0 - oe_ins - (j-1)*e_ins, 0) while the chain stays positive
     ehH = torch.where(
-        jcol == 0, h0[:, None],
-        torch.clamp_min(h0[:, None] - oe_ins - (jcol - 1) * e_ins, 0))
-    ehH = torch.where(jcol <= qlen[:, None], ehH, 0).to(i32)
-    ehE = torch.zeros((B, qmax + 1), dtype=i32, device=dev)
+        jcol == 0, h0r[:, None],
+        torch.clamp_min(h0r[:, None] - oe_ins - (jcol - 1) * e_ins, 0))
+    ehH = torch.where(jcol <= qlen[:, None], ehH, 0)
+    ehE = torch.zeros((B, qmax + 1), dtype=rdt, device=dev)
 
     beg = torch.zeros(B, dtype=i32, device=dev)
     end = qlen.clone()
@@ -102,8 +114,8 @@ def extend_core(qmax: int, tmax: int,
     gscore = max_i.clone()
     max_off = torch.zeros(B, dtype=i32, device=dev)
     done = (qlen == 0) | (tlen == 0)
-    zero_col = torch.zeros((B, 1), dtype=i32, device=dev)
-    neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
+    zero_col = torch.zeros((B, 1), dtype=rdt, device=dev)
+    neg_col = torch.full((B, 1), neg, dtype=rdt, device=dev)
     cells = torch.zeros((), dtype=torch.int64, device=dev)
 
     for i in range(tmax):
@@ -124,7 +136,7 @@ def extend_core(qmax: int, tmax: int,
 
         tb = target[:, min(i, tmax - 1)]
         # q[b, j] = mat[tb[b], query[b, j]] via 5-way select
-        q = torch.zeros((B, qmax), dtype=i32, device=dev)
+        q = torch.zeros((B, qmax), dtype=rdt, device=dev)
         for c in range(5):
             q = torch.where((tb == c)[:, None], qp[:, c, :], q)
 
@@ -138,10 +150,10 @@ def extend_core(qmax: int, tmax: int,
         # F scan: F[beg] = 0; F[j] = max_{beg<=k<j} (max(M[k]-oe_ins,0)
         #                                            - (j-1-k)*e_ins)
         T_ins = torch.clamp_min(M - oe_ins, 0)
-        A = torch.where(band_j, T_ins + jq * e_ins, NEG)
+        A = torch.where(band_j, T_ins + jq * e_ins, neg)
         run = torch.cummax(A, dim=1).values
         runs = torch.cat([neg_col, run[:, :-1]], dim=1)
-        F = torch.clamp_min(runs - (jq - 1) * e_ins, NEG)
+        F = torch.clamp_min(runs - (jq - 1) * e_ins, neg)
         F = torch.where(jq == beg[:, None], 0, F)
         F = torch.where(band_j, F, 0)
         F = torch.clamp_min(F, 0)
@@ -154,23 +166,24 @@ def extend_core(qmax: int, tmax: int,
         h1_init = torch.where(
             beg == 0, torch.clamp_min(h0 - (o_del + e_del * (i + 1)), 0),
             0).to(i32)
+        h1_row = h1_init.to(rdt)[:, None]
 
         # write-back: ehH[beg]=h1_init; ehH[j]=H[j-1] for beg<j<=end;
         # ehE[j]=Eout[j] for beg<=j<end; ehE[end]=0
         Hshift = torch.cat([zero_col, H], dim=1)
         in_write = (jcol > beg[:, None]) & (jcol <= end[:, None])
-        new_ehH = torch.where(jcol == beg[:, None], h1_init[:, None],
+        new_ehH = torch.where(jcol == beg[:, None], h1_row,
                               torch.where(in_write, Hshift, ehH))
         band_e = (jcol >= beg[:, None]) & (jcol < end[:, None])
         Epad = torch.cat([Eout, zero_col], dim=1)
         new_ehE = torch.where(band_e, Epad,
                               torch.where(jcol == end[:, None], 0, ehE))
 
-        h1 = Hshift.gather(1, end.long()[:, None])[:, 0]   # H at end-1
-        mrow = torch.where(band_j, H, 0).amax(dim=1)
+        h1 = Hshift.gather(1, end.long()[:, None])[:, 0].to(i32)  # end-1
+        mrow = torch.where(band_j, H, 0).amax(dim=1).to(i32)
         # mj: last band position attaining mrow; end-1 on an all-zero row
         att = band_j & (H == mrow[:, None])
-        mj = torch.where(att, jq, -1).amax(dim=1)
+        mj = torch.where(att, jq, -1).amax(dim=1).to(i32)
         mj = torch.where(mrow > 0, mj, end - 1)
 
         # collapsed-band rows still do the eh[end]/gscore bookkeeping
@@ -202,7 +215,7 @@ def extend_core(qmax: int, tmax: int,
         # band shrink (bwa/ksw.c:460-466) on the post-write arrays
         nz = (new_ehH != 0) | (new_ehE != 0)
         fwd_mask = nz & (jcol >= beg[:, None]) & (jcol < end[:, None])
-        first_nz = torch.where(fwd_mask, jcol, qmax + 2).amin(dim=1)
+        first_nz = torch.where(fwd_mask, jcol, qmax + 2).amin(dim=1).to(i32)
         beg_s = torch.minimum(first_nz, end)
         bwd_mask = nz & (jcol >= beg_s[:, None]) & (jcol <= end[:, None])
         last_nz = torch.where(bwd_mask, jcol, beg_s[:, None] - 1).amax(dim=1)
@@ -213,7 +226,7 @@ def extend_core(qmax: int, tmax: int,
         deg2 = (active0 & degenerate)[:, None]
         at_end = jcol == end[:, None]
         ehH = torch.where(act2, new_ehH,
-                          torch.where(deg2 & at_end, h1_init[:, None], ehH))
+                          torch.where(deg2 & at_end, h1_row, ehH))
         ehE = torch.where(act2, new_ehE,
                           torch.where(deg2 & at_end, 0, ehE))
         beg = torch.where(keep, beg_s, beg)
@@ -229,3 +242,13 @@ def extend_core(qmax: int, tmax: int,
     if stats is not None:
         stats["cells"] = stats.get("cells", 0) + int(cells)
     return (maxv, max_j + 1, max_i + 1, max_ie + 1, gscore, max_off)
+
+
+def extend_core16(qmax: int, tmax: int, query, qlen, target, tlen, h0,
+                  mat, o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop,
+                  stats: dict | None = None) -> tuple[torch.Tensor, ...]:
+    """extend_core with int16 DP rows: the plain version of the int16
+    kernel. Exact while extend_cuda.i16_exact holds for the inputs."""
+    return extend_core(qmax, tmax, query, qlen, target, tlen, h0, mat,
+                       o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop,
+                       stats=stats, row_dtype=torch.int16)

@@ -1,18 +1,19 @@
 """Batched device aligner — the device compute path of the pipeline.
 
-Port of bwa_flow_tpu/pipeline/batch.py (one device, single-end). Per
-batch:
+Port of bwa_flow_tpu/pipeline/batch.py (one device). Per batch:
 
   1. device SMEM seeding with fused SA resolution (ops/smem_torch.py)
   2. device SA probes for what the seed program did not resolve
   3. host chaining + filters (ops/chain.py, exact bwa semantics)
   4. wave extension: every read owns a chain2aln_tasks generator
      (ops/region.py); each wave gathers at most one pending seed task per
-     read into a fixed-shape device batch (ops/chain2aln_torch.py, the
+     read into a fixed-shape device batch (ops/chain2aln_torch.py, a
      CUDA ksw_extend2 kernel on the card), runs it, and feeds results
      back. Sequencing within a read (bwa's seed-containment skips) is
      exact; parallelism comes from batching across reads.
-  5. host dedup/patch/primary marking + SAM.
+  5. host dedup/patch/primary marking + SAM; paired-end batches
+     (interleaved mates) estimate the insert size, rescue mates and
+     pair (ops/pe.py) instead.
 
 Tasks too large for the device shapes run on the host scalar kernel
 inline. A device error propagates and fails the run.
@@ -32,6 +33,7 @@ from ..io.sam import Read, mem_reg2sam
 from ..models import golden
 from ..ops import chain as chainops
 from ..ops import fm as fmops
+from ..ops import pe as peops
 from ..ops import region as regionops
 from ..ops import smem_torch
 from ..ops.chain2aln_torch import DescTaskBuffer
@@ -375,3 +377,16 @@ class BatchAligner:
         all_regs = self.align_regs([s.seq for s in reads])
         for i, (s, regs) in enumerate(zip(reads, all_regs)):
             se_sam(self.opt, self.fm, s, regs, n_processed + i, rg_id)
+
+    def align_pe(self, reads: list[Read], n_processed: int = 0,
+                 pes0=None, rg_id: str = "") -> None:
+        """Batched paired-end alignment over interleaved reads: pestat
+        of the batch unless `pes0` is given, then pairing and SAM."""
+        opt, fm = self.opt, self.fm
+        all_regs = self.align_regs([s.seq for s in reads])
+        pes = pes0 if pes0 is not None else peops.mem_pestat(
+            opt, fm.bns.l_pac, all_regs)
+        for i in range(len(reads) >> 1):
+            j = i << 1
+            peops.mem_sam_pe(opt, fm, pes, (n_processed >> 1) + i,
+                             reads[j:j + 2], all_regs[j:j + 2], rg_id)

@@ -1,11 +1,12 @@
 """Host dataflow runtime: device stages on the main process, host stages
 in a worker pool, batches in a two-deep software pipeline.
 
-Port of bwa_flow_tpu/pipeline/dataflow.py (single-end):
+Port of bwa_flow_tpu/pipeline/dataflow.py (its pure-Python route):
 
   - the device stages (SMEM seeding, SA probes, extension waves) run on
     the main process, which owns the torch device;
-  - the host stages (seed chaining, region dedup/primary/SAM) are
+  - the host stages (seed chaining, region dedup/primary/SAM; for
+    paired-end batches dedup, then mate rescue, pairing and SAM) are
     GIL-bound Python, so they run in a process pool; the FM index
     reaches the workers by fork copy-on-write;
   - while batch N's host tail runs in the pool (from a background
@@ -13,16 +14,19 @@ Port of bwa_flow_tpu/pipeline/dataflow.py (single-end):
   - finished batches are emitted in order on the main process.
 
 The pool is created before the device upload of the index. Workers only
-run NumPy host stages and never touch torch.cuda.
+run NumPy host stages (mate rescue included: ksw_align2 is host code) and
+never touch torch.cuda.
 """
 
 from __future__ import annotations
 
+import functools
 import multiprocessing as mp
 import threading
 from typing import Callable, Iterable
 
 from ..io.sam import Read
+from ..ops import pe as peops
 from ..utils.opts import MemOpt
 from .batch import BatchAligner, chain_read, dedup_regs, se_sam
 
@@ -53,24 +57,46 @@ def _se_tail_worker(arg):
     return out
 
 
+def _dedup_worker(arg):
+    """Stage: raw regions -> dedup/patched regions for a slice of reads."""
+    opt, fm = _G["opt"], _G["fm"]
+    return [dedup_regs(opt, fm, seq, regs) for seq, regs in arg]
+
+
+def _pe_pair_worker(pes, pairs):
+    """Stage: dedup'd regions -> mate rescue/pairing/SAM for a slice of
+    read pairs, under one insert-size estimate `pes`."""
+    opt, fm = _G["opt"], _G["fm"]
+    out = []
+    for r1, r2, regs1, regs2, pair_id in pairs:
+        s1 = Read(name=r1[1], seq=r1[0], qual=r1[2], comment=r1[3],
+                  id=2 * pair_id)
+        s2 = Read(name=r2[1], seq=r2[0], qual=r2[2], comment=r2[3],
+                  id=2 * pair_id + 1)
+        peops.mem_sam_pe(opt, fm, pes, pair_id, [s1, s2], [regs1, regs2],
+                         _G["rg_id"])
+        out.append((s1.sam, s2.sam))
+    return out
+
+
 def _slices(items, n_slices):
     k = max(1, -(-len(items) // n_slices))
     return [items[i:i + k] for i in range(0, len(items), k)]
 
 
 class AlignPipeline:
-    """Device + worker-pool single-end aligner over a batch stream."""
+    """Device + worker-pool aligner over a batch stream. Paired-end
+    batches hold mates interleaved; `pes0` (the -I option) replaces the
+    per-batch insert-size estimate."""
 
     def __init__(self, opt: MemOpt, fm, paired: bool = False,
-                 n_workers: int = 0, rg_id: str = "",
+                 n_workers: int = 0, rg_id: str = "", pes0=None,
                  aligner_kw: dict | None = None, mp_context: str = "fork",
                  device=None):
-        if paired:
-            raise NotImplementedError(
-                "bwa_flow_tpu_torch: paired-end alignment is not ported "
-                "yet (single-end only)")
         self.opt = opt
         self.fm = fm
+        self.paired = paired
+        self.pes0 = pes0
         self.rg_id = rg_id
         self.n_workers = n_workers
         self.pool = None
@@ -112,14 +138,11 @@ class AlignPipeline:
         uses the pool); returns join() -> the finished batch. A tail
         failure is re-raised at join and fails the run."""
         box: dict = {}
+        tail = self._tail_pe if self.paired else self._tail_se
 
         def run_tail():
             try:
-                work = [(r.seq, r.name, r.qual, r.comment, all_regs[i],
-                         r.id) for i, r in enumerate(batch)]
-                sams = self._run_parts(_se_tail_worker, work)
-                for r, s in zip(batch, sams):
-                    r.sam = s
+                tail(batch, all_regs)
             except BaseException as e:  # noqa: BLE001 - re-raised in join
                 box["err"] = e
 
@@ -132,6 +155,34 @@ class AlignPipeline:
                 raise box["err"]
             return batch
         return join
+
+    def _tail_se(self, batch, all_regs) -> None:
+        work = [(r.seq, r.name, r.qual, r.comment, all_regs[i], r.id)
+                for i, r in enumerate(batch)]
+        sams = self._run_parts(_se_tail_worker, work)
+        for r, s in zip(batch, sams):
+            r.sam = s
+
+    def _tail_pe(self, batch, all_regs) -> None:
+        """Dedup in the pool; the insert-size estimate of the batch on the
+        deduped regions (unless `pes0`); then rescue, pairing and SAM in
+        the pool. Pair ids are r1.id >> 1, as on the golden route."""
+        regs = self._run_parts(
+            _dedup_worker, [(r.seq, all_regs[i]) for i, r in enumerate(batch)])
+        pes = self.pes0 if self.pes0 is not None else peops.mem_pestat(
+            self.opt, self.fm.bns.l_pac, regs)
+        pairs = []
+        for i in range(len(batch) >> 1):
+            j = i << 1
+            r1, r2 = batch[j], batch[j + 1]
+            pairs.append(((r1.seq, r1.name, r1.qual, r1.comment),
+                          (r2.seq, r2.name, r2.qual, r2.comment),
+                          regs[j], regs[j + 1], r1.id >> 1))
+        sams = self._run_parts(functools.partial(_pe_pair_worker, pes),
+                               pairs)
+        for i, (s1, s2) in enumerate(sams):
+            batch[2 * i].sam = s1
+            batch[2 * i + 1].sam = s2
 
     # -- the pipeline --------------------------------------------------
     def run(self, batches: Iterable[list[Read]],

@@ -5,22 +5,37 @@
 Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
      the torch/CUDA versions, and builds every CUDA kernel of the main
-     path from bwa_flow_tpu_torch/csrc/ (one nvcc per source, in
-     parallel).
+     paths from bwa_flow_tpu_torch/csrc/ (one nvcc per source, all
+     started together).
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes: ksw_extend2 on 4096 right-extension tasks of
-     151 bp reads (qmax=160, tmax=512, some degenerate lanes) under
-     three scorings; every output must be equal (tolerance 0: all values
-     are integers). Both are timed with CUDA events.
-  3. the main path: a 4.6 Mbp repeat-realistic genome and 8192 x 151 bp
-     reads (1% substitutions) from fixed seeds; `index`, then
-     `mem -t 8 --batch-reads 4096` on the card through the CLI. Every
-     read must have exactly one primary record, >= 95% mapped, and the
-     kernel must have launched. Then a 256-read subset on the card and
-     with --no-device (the port's host golden): the two SAMs must be
-     byte-identical apart from @PG.
-  4. one JSON line describing the kernels, the device line, and as the
-     last line {"ok": true, "device": {...}}.
+     main path's shapes: the int32 and the int16 ksw_extend2 on 4096
+     right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
+     degenerate lanes) under three scorings, all inside the int16
+     bound; every output must be equal (tolerance 0: all values are
+     integers), and the int16 kernel must also equal the int32 one.
+     Kernels and plain versions are timed with CUDA events.
+  3. the single-end path: a 4.6 Mbp repeat-realistic genome and 8192 x
+     151 bp reads (1% substitutions) from fixed seeds; `index`, then
+     `mem -t 8 --batch-reads 4096` on the card through the CLI (int32
+     kernel). Every read must have exactly one primary record, >= 95%
+     mapped, and the int32 kernel must have launched. Then a 256-read
+     subset on the card and with --no-device (the port's host golden):
+     the two SAMs must be byte-identical apart from @PG.
+  4. the paired-end path on the same genome: 8192 FR pairs of 2 x 151
+     bp, insert size N(400, 40), 1% substitutions; `mem -t 8
+     --batch-reads 4096 ref.fa r1.fq r2.fq` with BWA_TPU_EXTEND16=1 (set
+     for this phase only), so the waves run the int16 kernel. One
+     primary record per read, >= 95% of reads mapped, >= 90% of pairs
+     proper, the int16 kernel launched and the int32 one not; a 256-pair
+     subset on the card equals its --no-device SAM apart from @PG.
+     Phases 3 and 4 record CUDA events around every kernel call and print
+     each kernel's summed device time over its path.
+  5. each kernel at the mean wave size of the path that launched it
+     (waves are trimmed to their filled slots): against its plain
+     version, timed, with its bound.
+  6. one JSON line describing the kernels (ms, plain_ms and bound_ms at
+     the path's mean wave; *_b4096 at B=4096), the device line, and as
+     the last line {"ok": true, "device": {...}}.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -28,6 +43,7 @@ JAX package. Work files go to build/chip_smoke/ in the checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -47,6 +63,8 @@ READ_LEN = 151
 N_READS = 8192
 BATCH = 4096
 N_SUB = 256
+N_PAIRS = 8192
+INSERT_MEAN, INSERT_SD = 400, 40
 QMAX, TMAX = 160, 512        # the wave shapes of the main path
 B_EXT = 4096
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM; int32 ops run on the 64
@@ -54,7 +72,16 @@ B_EXT = 4096
 # rate (an FMA counts 2): 132 SMs x 64 x 1.98 GHz = 16.7e12 int32 op/s
 HBM_BPS = 3.35e12
 INT32_OPS = 16.7e12
-OPS_PER_CELL = 20            # int32 ops of one DP cell (csrc/ksw_extend.cu)
+# Operations of one DP cell, from the recurrence (bwa ksw.c:409-422) at
+# the fewest instructions Hopper has for it: M = H(i-1, j-1) + score,
+# zero where H(i-1, j-1) is 0 (2); H = max(M, E, F) (1, __vimax3); the
+# row's argmax m, mj (3); E = max(E - e_del, max(M - oe_del, 0)) (2,
+# two fused add-max __viaddmax); F the same way (2).
+OPS_PER_CELL = 10
+# Cells per 32-bit operation: int16 rows pack two cells a word for the
+# 16x2 DPX instructions (__viaddmax_s16x2, __vimax3_s16x2). The data
+# sheet gives no DPX rate, so a packed op counts at the int32 rate.
+CELLS_PER_OP = {"ksw_extend2": 1, "ksw_extend2_i16": 2}
 
 CODE = np.full(256, 4, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -160,6 +187,33 @@ def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int):
     (work / "sub.fq").write_text("".join(recs[:N_SUB]))
 
 
+def write_pe_inputs(work: Path, genome: np.ndarray, n_pairs: int,
+                    seed: int):
+    """r1.fq/r2.fq: FR pairs of 151 bp reads from fragments of N(400,
+    40) bp on either strand, 1% substitutions; sub1.fq/sub2.fq hold the
+    first N_SUB pairs."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(seed)
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    isize = np.maximum(rng.normal(INSERT_MEAN, INSERT_SD, n_pairs)
+                       .astype(np.int64), READ_LEN)
+    recs: tuple[list, list] = ([], [])
+    for i in range(n_pairs):
+        pos = int(rng.integers(0, len(genome) - isize[i]))
+        frag = genome[pos:pos + isize[i]]
+        ends = [frag[:READ_LEN].copy(), comp[frag[-READ_LEN:][::-1]]]
+        if rng.random() < 0.5:
+            ends.reverse()       # the fragment of the other strand
+        for k, r in enumerate(ends):
+            m = rng.random(READ_LEN) < 0.01
+            r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            recs[k].append(f"@p{i}/{k + 1}\n{bases[r].tobytes().decode()}"
+                           f"\n+\n{'I' * READ_LEN}\n")
+    for k in range(2):
+        (work / f"r{k + 1}.fq").write_text("".join(recs[k]))
+        (work / f"sub{k + 1}.fq").write_text("".join(recs[k][:N_SUB]))
+
+
 # ------------------------------------------------------------ kernels
 
 def make_ext_tasks(rng, genome, n):
@@ -201,58 +255,190 @@ def _time_ms(fn, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
+def _diff(got, want) -> tuple[int, int]:
+    """(max |err|, mismatching values) over the six outputs."""
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in zip(got, want))
+    return err, sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+def _kernels() -> dict:
+    """name -> (kernel wrapper, plain version) of every kernel."""
+    from bwa_flow_tpu_torch.ops import extend_cuda, extend_torch
+    return {"ksw_extend2": (extend_cuda.extend_core_cuda,
+                            extend_torch.extend_core),
+            "ksw_extend2_i16": (extend_cuda.extend_core_cuda16,
+                                extend_torch.extend_core16)}
+
+
+def _bound(name: str, args: list, cells: int) -> dict:
+    """The least time of a kernel's work on these inputs: each input read
+    once and each output written once over HBM, or the cells' operations
+    over the int32 rate, whichever is larger."""
+    B = args[0].shape[0]
+    nbytes = (sum(a.numel() for a in args) + B + 25 + 6 * B) * 4
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = cells * OPS_PER_CELL / CELLS_PER_OP[name] / INT32_OPS * 1e3
+    return dict(cells=cells, bytes=nbytes, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _ext_args(genome: np.ndarray, device, n: int = B_EXT) -> list:
+    """The first n of phase 2's extension tasks as tensors on `device`."""
+    import torch
+    q, ql, t, tl, h0 = make_ext_tasks(np.random.default_rng(0x5EED),
+                                      genome, B_EXT)
+    return [torch.as_tensor(np.ascontiguousarray(a[:n]), device=device)
+            for a in (q, ql, t, tl, h0)]
+
+
 def phase_kernels(genome: np.ndarray, device) -> dict:
-    """ksw_extend2 kernel vs its plain version at the wave shapes."""
+    """Both ksw_extend2 kernels vs their plain versions at the widest
+    wave (B=4096), and the int16 kernel vs the int32 one; returns the
+    numbers of each kernel by name."""
     import torch
 
     from bwa_flow_tpu_torch.ops import extend_cuda, extend_torch
     from bwa_flow_tpu_torch.utils.opts import MemOpt
 
-    rng = np.random.default_rng(0x5EED)
-    q, ql, t, tl, h0 = make_ext_tasks(rng, genome, B_EXT)
-    args = [torch.as_tensor(a, device=device) for a in (q, ql, t, tl, h0)]
+    args = _ext_args(genome, device)
+    h0 = args[4].cpu().numpy()
     opt = MemOpt()
     asym = MemOpt(o_del=5, e_del=2, o_ins=9, e_ins=1, a=2, b=5)
     asym.refresh_mat()
     scorings = [("bwa defaults", opt, opt.w, opt.zdrop),
                 ("narrow band w=10", opt, 10, opt.zdrop),
                 ("zdrop=0 asymmetric gaps", asym, asym.w, 0)]
-    res = dict(max_abs_err=0)
-    for name, o, w, zd in scorings:
+    kernels = _kernels()
+    res = {name: dict(max_abs_err=0) for name in kernels}
+    for si, (sname, o, w, zd) in enumerate(scorings):
+        if not extend_cuda.i16_exact(QMAX, int(h0.max()), int(o.mat.max()),
+                                     o.pen_clip3):
+            raise SystemExit(f"scoring {sname} is outside the int16 bound")
         mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
                               dtype=torch.int32, device=device)
         sc = (o.o_del, o.e_del, o.o_ins, o.e_ins, w, o.pen_clip3, zd)
-        got = extend_cuda.extend_core_cuda(QMAX, TMAX, *args[:5], mat, *sc)
-        torch.cuda.synchronize()
         stats: dict = {}
-        want = extend_torch.extend_core(QMAX, TMAX, *args[:5], mat, *sc,
-                                        stats=stats)
-        err = max(int((a.long() - b.long()).abs().max())
-                  for a, b in zip(got, want))
-        bad = sum(int((a != b).sum()) for a, b in zip(got, want))
-        ms = _time_ms(lambda: extend_cuda.extend_core_cuda(
-            QMAX, TMAX, *args[:5], mat, *sc), 50)
-        plain_ms = _time_ms(lambda: extend_torch.extend_core(
-            QMAX, TMAX, *args[:5], mat, *sc), 20)
+        want32 = extend_torch.extend_core(QMAX, TMAX, *args, mat, *sc,
+                                          stats=stats)
         cells = stats["cells"]
-        print(f"[kernel] ksw_extend2 {name}: B={B_EXT} mismatching "
-              f"values {bad}, max |err| {err}; kernel {ms:.4f} ms "
-              f"({cells / ms / 1e6:.3f} GCUPS), plain {plain_ms:.3f} ms "
-              f"({cells / plain_ms / 1e6:.3f} GCUPS), {cells} cells")
-        if bad:
-            raise SystemExit(f"ksw_extend2 disagrees with its plain "
-                             f"version under {name}")
-        res["max_abs_err"] = max(res["max_abs_err"], err)
-        if "ms" not in res:   # the defaults are the main path's scoring
-            nbytes = (sum(a.numel() for a in args) + B_EXT + 25
-                      + 6 * B_EXT) * 4
-            t_bytes = nbytes / HBM_BPS * 1e3
-            t_ops = cells * OPS_PER_CELL / INT32_OPS * 1e3
-            res.update(ms=ms, plain_ms=plain_ms, cells=cells, bytes=nbytes,
-                       bound_ms=max(t_bytes, t_ops),
-                       bound_by="bytes" if t_bytes >= t_ops
-                       else "operations")
+        got32 = None
+        for name, (kern, plain) in kernels.items():
+            got = kern(QMAX, TMAX, *args, mat, *sc)
+            torch.cuda.synchronize()
+            want = want32 if plain is extend_torch.extend_core else plain(
+                QMAX, TMAX, *args, mat, *sc)
+            err, bad = _diff(got, want)
+            what = f"mismatching values {bad} vs plain"
+            if got32 is None:
+                got32 = got
+            else:
+                err32, bad32 = _diff(got, got32)
+                err, bad = max(err, err32), bad + bad32
+                what += f", {bad32} vs the int32 kernel"
+            ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 50)
+            plain_ms = _time_ms(lambda: plain(QMAX, TMAX, *args, mat, *sc),
+                                20 if si == 0 else 5)
+            print(f"[kernel] {name} {sname}: B={B_EXT} {what}, max |err| "
+                  f"{err}; kernel {ms:.4f} ms ({cells / ms / 1e6:.3f} "
+                  f"GCUPS), plain {plain_ms:.3f} ms "
+                  f"({cells / plain_ms / 1e6:.3f} GCUPS), {cells} cells")
+            if bad:
+                raise SystemExit(f"{name} disagrees under {sname}")
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if si == 0:   # the defaults are the main path's scoring
+                r.update(ms=ms, plain_ms=plain_ms,
+                         **_bound(name, args, cells))
     return res
+
+
+def phase_wave_shape(genome: np.ndarray, device, res: dict,
+                     path: dict) -> None:
+    """Each kernel at the mean wave of the path that launched it (the
+    waves are trimmed to their filled slots): the first `tasks` of phase
+    2's tasks, bwa defaults, against the plain version and timed; adds
+    the numbers to res[name] under `path_*` keys."""
+    import torch
+
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    o = MemOpt()
+    for name, (kern, plain) in _kernels().items():
+        n = max(1, round(path[name]["tasks_per_launch"]))
+        args = _ext_args(genome, device, n)
+        mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
+                              dtype=torch.int32, device=device)
+        sc = (o.o_del, o.e_del, o.o_ins, o.e_ins, o.w, o.pen_clip3,
+              o.zdrop)
+        stats: dict = {}
+        want = plain(QMAX, TMAX, *args, mat, *sc, stats=stats)
+        got = kern(QMAX, TMAX, *args, mat, *sc)
+        torch.cuda.synchronize()
+        err, bad = _diff(got, want)
+        ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 200)
+        plain_ms = _time_ms(lambda: plain(QMAX, TMAX, *args, mat, *sc), 3)
+        b = _bound(name, args, stats["cells"])
+        r = res[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.update({f"path_{k}": v for k, v in b.items()},
+                 path_B=n, path_ms=ms, path_plain_ms=plain_ms)
+        print(f"[wave] {name} at its path's mean wave B={n}: mismatching "
+              f"values {bad}, max |err| {err}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b['bound_ms']:.5f} ms "
+              f"({b['bound_by']}), {b['cells']} cells")
+        if bad:
+            raise SystemExit(f"{name} disagrees at B={n}")
+
+
+@contextlib.contextmanager
+def timed_launches():
+    """While the block runs, record CUDA events around every call of the
+    kernel wrappers; yields name -> [(start, end, tasks)]. The wrappers
+    (and their launch counts) run unchanged inside."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    log: dict = {}
+    saved = {}
+    for name, attr in (("ksw_extend2", "extend_core_cuda"),
+                       ("ksw_extend2_i16", "extend_core_cuda16")):
+        saved[attr] = fn = getattr(extend_cuda, attr)
+        events = log.setdefault(name, [])
+
+        def timed(*a, _fn=fn, _events=events):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = _fn(*a)
+            e1.record()
+            _events.append((e0, e1, int(a[2].shape[0])))
+            return out
+        setattr(extend_cuda, attr, timed)
+    try:
+        yield log
+    finally:
+        for attr, fn in saved.items():
+            setattr(extend_cuda, attr, fn)
+
+
+def launch_times(log: dict, tag: str) -> dict:
+    """Sum the recorded device time of each kernel over a path's run."""
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for name, events in log.items():
+        if not events:
+            continue
+        total = sum(e0.elapsed_time(e1) for e0, e1, _ in events)
+        tasks = sum(b for _, _, b in events)
+        out[name] = dict(device_ms=total, launches=len(events),
+                         tasks_per_launch=tasks / len(events))
+        print(f"[{tag}] {name} on the path: {len(events)} launches, "
+              f"{tasks / len(events):.1f} tasks a launch, device time "
+              f"{total:.3f} ms in all, {total / len(events):.4f} ms a "
+              f"launch (CUDA events around each wrapper call)")
+    return out
 
 
 # ----------------------------------------------------------- main path
@@ -262,8 +448,13 @@ def _records(path: Path) -> list[list[str]]:
             if l and not l.startswith("@")]
 
 
+def _body(p: Path) -> list[str]:
+    return [l for l in p.read_text().splitlines() if not l.startswith("@PG")]
+
+
 def phase_main_path(work: Path, device: str) -> dict:
-    """index + mem through the port's CLI; returns the run's numbers."""
+    """index + single-end mem through the port's CLI (int32 kernel);
+    returns the run's numbers."""
     import torch
 
     from bwa_flow_tpu_torch import cli
@@ -276,15 +467,20 @@ def phase_main_path(work: Path, device: str) -> dict:
     print(f"[main] index of {GENOME_LEN} bp: {t_index:.1f} s")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
     extend_cuda.n_launches = 0            # count only the main path run
+    extend_cuda.n_launches16 = 0
     tracer.totals.clear()
     tracer.counts.clear()
     t0 = time.perf_counter()
-    assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
-                     "--device", device, "-o", str(work / "full.sam"),
-                     str(work / "ref.fa"), str(work / "reads.fq")]) == 0
+    with timed_launches() as log:
+        assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
+                         "--device", device, "-o", str(work / "full.sam"),
+                         str(work / "ref.fa"), str(work / "reads.fq")]) == 0
     dt = time.perf_counter() - t0
+    path = launch_times(log, "main")
     launches = extend_cuda.n_launches
+    launches16 = extend_cuda.n_launches16
     st = dict(cli.last_run_stats)
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     seed_per_batch = st["seed_s"] / max(1, st["seed_batches"])
@@ -315,8 +511,10 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"{frac:.4f}")
     if frac < 0.95:
         raise SystemExit(f"full.sam: only {frac:.4f} of reads mapped")
-    if device == "cuda" and launches <= 0:
-        raise SystemExit("the main path never launched ksw_extend2")
+    if device == "cuda" and (launches <= 0 or launches16):
+        raise SystemExit(f"the single-end path launched ksw_extend2 "
+                         f"{launches} times and ksw_extend2_i16 "
+                         f"{launches16} times")
 
     # device SAM == host golden SAM on a subset, apart from @PG
     assert cli.main(["mem", "--device", device, "-o",
@@ -325,17 +523,103 @@ def phase_main_path(work: Path, device: str) -> dict:
     assert cli.main(["mem", "--no-device", "-o", str(work / "sub_host.sam"),
                      str(work / "ref.fa"), str(work / "sub.fq")]) == 0
 
-    def body(p):
-        return [l for l in p.read_text().splitlines()
-                if not l.startswith("@PG")]
-    dev_sam, host_sam = body(work / "sub_dev.sam"), body(work / "sub_host.sam")
+    dev_sam, host_sam = _body(work / "sub_dev.sam"), _body(work /
+                                                          "sub_host.sam")
     if dev_sam != host_sam:
         raise SystemExit("device SAM differs from the --no-device SAM on "
                          f"the {N_SUB}-read subset")
     print(f"[main] {N_SUB}-read subset: device SAM == --no-device SAM "
           f"({len(dev_sam)} lines)")
     return dict(launches=launches, reads_per_s=N_READS / dt,
-                seed_s_per_batch=seed_per_batch, stats=st, peak=peak)
+                seed_s_per_batch=seed_per_batch, stats=st, peak=peak,
+                path=path["ksw_extend2"])
+
+
+def phase_pe_path(work: Path, device: str) -> dict:
+    """Paired-end mem through the port's CLI with BWA_TPU_EXTEND16=1
+    (the int16 kernel); returns the run's numbers."""
+    import torch
+
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
+
+    ref = str(work / "ref.fa")
+    os.environ["BWA_TPU_EXTEND16"] = "1"
+    try:
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        extend_cuda.n_launches = 0        # count only the PE path run
+        extend_cuda.n_launches16 = 0
+        tracer.totals.clear()
+        tracer.counts.clear()
+        t0 = time.perf_counter()
+        with timed_launches() as log:
+            assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
+                             "--device", device, "-o", str(work / "pe.sam"),
+                             ref, str(work / "r1.fq"),
+                             str(work / "r2.fq")]) == 0
+        dt = time.perf_counter() - t0
+        path = launch_times(log, "pe")
+        launches = extend_cuda.n_launches
+        launches16 = extend_cuda.n_launches16
+        st = dict(cli.last_run_stats)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+        print(f"[pe] mem {N_PAIRS} pairs: {dt:.2f} s, {N_PAIRS / dt:.1f} "
+              f"pairs/s ({2 * N_PAIRS / dt:.1f} reads/s, index load "
+              f"included); seed program "
+              f"{st['seed_s'] / max(1, st['seed_batches']):.3f} s/batch "
+              f"over {st['seed_batches']} batches; waves {st['waves']}, "
+              f"device tasks {st['ext_tasks_device']}, host tasks "
+              f"{st['ext_tasks_host']}, band retries {st['band_retries']};"
+              f" ksw_extend2_i16 launches {launches16}, ksw_extend2 "
+              f"launches {launches}; peak device memory "
+              f"{peak / 2**20:.1f} MiB")
+        print(f"[pe] spans (host wall clock, s): {tracer.as_json()}")
+
+        recs = _records(work / "pe.sam")
+        primary: dict = {}
+        mapped = proper = 0
+        for f in recs:
+            flag = int(f[1])
+            if flag & 0x900:
+                continue
+            key = (f[0], flag & 0xC0)
+            primary[key] = primary.get(key, 0) + 1
+            mapped += 0 if flag & 0x4 else 1
+            proper += 1 if flag & 0x42 == 0x42 else 0
+        keys = {(f[0], int(f[1]) & 0xC0) for f in recs}
+        if len(keys) != 2 * N_PAIRS or any(primary.get(k) != 1
+                                           for k in keys):
+            raise SystemExit("pe.sam: not exactly one primary record per "
+                             "read")
+        frac, frac_p = mapped / (2 * N_PAIRS), proper / N_PAIRS
+        print(f"[pe] {N_PAIRS} pairs, {len(recs)} records, reads mapped "
+              f"{frac:.4f}, pairs proper {frac_p:.4f}")
+        if frac < 0.95 or frac_p < 0.90:
+            raise SystemExit(f"pe.sam: {frac:.4f} of reads mapped, "
+                             f"{frac_p:.4f} of pairs proper")
+        if device == "cuda" and (launches16 <= 0 or launches):
+            raise SystemExit(f"the paired-end path launched "
+                             f"ksw_extend2_i16 {launches16} times and "
+                             f"ksw_extend2 {launches} times")
+
+        # device SAM == host golden SAM on a subset of pairs, apart from @PG
+        sub = [str(work / "sub1.fq"), str(work / "sub2.fq")]
+        assert cli.main(["mem", "--device", device, "-o",
+                         str(work / "pe_sub_dev.sam"), ref] + sub) == 0
+        assert cli.main(["mem", "--no-device", "-o",
+                         str(work / "pe_sub_host.sam"), ref] + sub) == 0
+    finally:
+        del os.environ["BWA_TPU_EXTEND16"]
+    dev_sam = _body(work / "pe_sub_dev.sam")
+    if dev_sam != _body(work / "pe_sub_host.sam"):
+        raise SystemExit("device SAM differs from the --no-device SAM on "
+                         f"the {N_SUB}-pair subset")
+    print(f"[pe] {N_SUB}-pair subset: device SAM == --no-device SAM "
+          f"({len(dev_sam)} lines)")
+    return dict(launches=launches16, pairs_per_s=N_PAIRS / dt, stats=st,
+                peak=peak, path=path["ksw_extend2_i16"])
 
 
 def main() -> int:
@@ -357,8 +641,9 @@ def main() -> int:
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    _build.build_all(["ksw_extend"])
-    print(f"[build] csrc/ksw_extend.cu: {time.perf_counter() - t0:.2f} s")
+    _build.build_all(["ksw_extend", "ksw_extend16"])
+    print(f"[build] csrc/ksw_extend.cu + csrc/ksw_extend16.cu (one nvcc "
+          f"each, in parallel): {time.perf_counter() - t0:.2f} s")
 
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -366,23 +651,40 @@ def main() -> int:
     t0 = time.perf_counter()
     genome = make_genome(GENOME_LEN, GENOME_SEED)
     write_inputs(WORK, genome, N_READS, GENOME_SEED + 1)
-    print(f"[data] genome {GENOME_LEN} bp + {N_READS} reads: "
-          f"{time.perf_counter() - t0:.1f} s")
+    write_pe_inputs(WORK, genome, N_PAIRS, GENOME_SEED + 2)
+    print(f"[data] genome {GENOME_LEN} bp + {N_READS} reads + {N_PAIRS} "
+          f"pairs: {time.perf_counter() - t0:.1f} s")
 
-    kres = phase_kernels(genome, torch.device("cuda"))
+    cuda = torch.device("cuda")
+    kres = phase_kernels(genome, cuda)
     mres = phase_main_path(WORK, "cuda")
+    pres = phase_pe_path(WORK, "cuda")
+    phase_wave_shape(genome, cuda, kres, {"ksw_extend2": mres["path"],
+                                          "ksw_extend2_i16": pres["path"]})
 
-    kern = {
-        "name": "ksw_extend2", "route": "cuda",
-        "source": "bwa_flow_tpu_torch/csrc/ksw_extend.cu",
-        "replaces": "bwa_flow_tpu/ops/extend_pallas.py:550",
-        "replaces_kernel": "bwa_flow_tpu/ops/extend_pallas.py::_make_kernel",
-        "checked": True, "launches": mres["launches"],
-        "max_abs_err": kres["max_abs_err"], "ms": kres["ms"],
-        "plain_ms": kres["plain_ms"], "bound_ms": kres["bound_ms"],
-        "bound_by": kres["bound_by"], "library_ms": None,
-        "cells": kres["cells"], "bytes": kres["bytes"]}
-    print(json.dumps({"kernels": [kern]}))
+    # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
+    # *_b4096 at the widest wave
+    kernels = []
+    for name, source, line, body, res in (
+            ("ksw_extend2", "ksw_extend.cu", 550, "_make_kernel", mres),
+            ("ksw_extend2_i16", "ksw_extend16.cu", 242, "_make_kernel16",
+             pres)):
+        k = kres[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"bwa_flow_tpu_torch/csrc/{source}",
+            "replaces": f"bwa_flow_tpu/ops/extend_pallas.py:{line}",
+            "replaces_kernel": f"bwa_flow_tpu/ops/extend_pallas.py::{body}",
+            "checked": True, "launches": res["launches"],
+            "max_abs_err": k["max_abs_err"], "ms": k["path_ms"],
+            "plain_ms": k["path_plain_ms"], "bound_ms": k["path_bound_ms"],
+            "bound_by": k["path_bound_by"], "library_ms": None,
+            "B": k["path_B"], "cells": k["path_cells"],
+            "bytes": k["path_bytes"],
+            "path_device_ms": res["path"]["device_ms"],
+            "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
+            "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
+    print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """The port's CLI (`bwa_flow_tpu_torch index|mem --device cpu`) against
 `python -m bwa_flow_tpu` on the fixture of tests/test_cli.py: index files
-byte-equal, mem SAM equal apart from @PG, --no-device equal too."""
+byte-equal, single-end and paired-end mem SAM equal apart from @PG
+(paired-end also with the int16 extension core and with -I),
+--no-device equal too."""
 
 import os
 import shutil
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.ops import extend_torch
 
 # small tensors: one intra-op thread per test process (xdist runs six)
 torch.set_num_threads(1)
@@ -33,7 +36,7 @@ def workdir(tmp_path_factory):
             f.write(s[i:i + 70] + "\n")
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     g = genome.tobytes()
-    se, r2 = [], []
+    se, r1, r2 = [], [], []
     for i in range(12):
         pos = int(rng.integers(0, 8000 - 420))
         read = bytearray(g[pos:pos + 101])
@@ -41,15 +44,16 @@ def workdir(tmp_path_factory):
             j = int(rng.integers(0, 101))
             read[j] = b"ACGT"[(b"ACGT".index(read[j]) + 1) % 4]
         se.append((f"s{i}", read.decode()))
+        r1.append((f"p{i}/1", read.decode()))
         r2.append((f"p{i}/2", g[pos + 300:pos + 401].translate(comp)[::-1]
                    .decode()))
-    for name, recs in (("se.fq", se), ("r2.fq", r2)):
+    for name, recs in (("se.fq", se), ("r1.fq", r1), ("r2.fq", r2)):
         with open(d / name, "w") as f:
             for n, s in recs:
                 f.write(f"@{n}\n{s}\n+\n{'I' * len(s)}\n")
     jd = d / "jax"
     jd.mkdir()
-    for name in ("ref.fa", "se.fq"):
+    for name in ("ref.fa", "se.fq", "r1.fq", "r2.fq"):
         shutil.copy(d / name, jd / name)
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
                HOME=str(d))
@@ -59,6 +63,15 @@ def workdir(tmp_path_factory):
                            capture_output=True, text=True, cwd=str(jd),
                            env=env, timeout=600)
         assert r.returncode == 0, r.stderr[-2000:]
+    # both paired-end runs in one process: pe.sam, and pe_I.sam with -I
+    pe_runs = ("from bwa_flow_tpu import cli\n"
+               "pe = ['ref.fa', 'r1.fq', 'r2.fq']\n"
+               "assert cli.main(['mem', '-o', 'pe.sam'] + pe) == 0\n"
+               "assert cli.main(['mem', '-I', '300,30', '-o', 'pe_I.sam']"
+               " + pe) == 0\n")
+    r = subprocess.run([sys.executable, "-c", pe_runs], capture_output=True,
+                       text=True, cwd=str(jd), env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
     assert cli.main(["index", str(d / "ref.fa")]) == 0
     return d
 
@@ -91,12 +104,44 @@ def test_mem_sam_equals_jax_package(workdir, mode):
         "@PG\tID:bwa_flow_tpu_torch\tPN:bwa_flow_tpu_torch")
 
 
-@pytest.mark.parametrize("extra", [["--sort"], ["--nprocs", "2"], ["PE"]])
+PE_MODES = {"device_cpu": ["--device", "cpu"],
+            "device_cpu_int16": ["--device", "cpu"],
+            "no_device": ["--no-device"],
+            "insert_override": ["--device", "cpu", "-I", "300,30"]}
+
+
+@pytest.mark.parametrize("mode", sorted(PE_MODES))
+def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
+    """BWA_TPU_EXTEND16=1 runs the waves on the int16 plain version (the
+    int16 kernel's CPU path); the SAM does not change."""
+    if mode == "device_cpu_int16":
+        monkeypatch.setenv("BWA_TPU_EXTEND16", "1")
+    else:
+        monkeypatch.delenv("BWA_TPU_EXTEND16", raising=False)
+    calls = []
+    core16 = extend_torch.extend_core16
+
+    def counting(*a, **k):
+        calls.append(1)
+        return core16(*a, **k)
+    monkeypatch.setattr(extend_torch, "extend_core16", counting)
+    out = workdir / f"pe_{mode}.sam"
+    assert cli.main(["mem"] + PE_MODES[mode] + [
+        "-o", str(out), str(workdir / "ref.fa"), str(workdir / "r1.fq"),
+        str(workdir / "r2.fq")]) == 0
+    mine = _body(out)
+    want = "pe_I.sam" if mode == "insert_override" else "pe.sam"
+    assert mine == _body(workdir / "jax" / want)
+    recs = [l.split("\t") for l in mine if not l.startswith("@")]
+    assert len(recs) == 24 and all(int(f[1]) & 0x1 for f in recs)
+    assert [f[0] for f in recs[::2]] == [f[0] for f in recs[1::2]]
+    assert bool(calls) == (mode == "device_cpu_int16")
+
+
+@pytest.mark.parametrize("extra", [["--sort"], ["--nprocs", "2"],
+                                   ["--coordinator", "host:1"]])
 def test_later_slice_options_exit_nonzero(workdir, extra):
-    fq = [str(workdir / "se.fq")]
-    if extra == ["PE"]:
-        extra, fq = [], fq + [str(workdir / "r2.fq")]
     with pytest.raises(SystemExit) as e:
         cli.main(["mem", "--device", "cpu"] + extra
-                 + [str(workdir / "ref.fa")] + fq)
+                 + [str(workdir / "ref.fa"), str(workdir / "se.fq")])
     assert e.value.code not in (0, None)

@@ -1,8 +1,8 @@
-"""The plain PyTorch ksw_extend2 (ops/extend_torch.py, the CUDA kernel's
-CPU path and yardstick) against the JAX package: the Pallas kernel
-_extend_pallas run in interpret mode, and the XLA extend_core, over the
-task mixes of tests/test_extend_jax.py. Exact equality on all six
-outputs."""
+"""The plain PyTorch ksw_extend2 (ops/extend_torch.py, the CUDA kernels'
+CPU path and yardstick), with int32 and with int16 DP rows, against the
+JAX package: the Pallas kernel _extend_pallas (both bodies) run in
+interpret mode, and the XLA extend_core, over the task mixes of
+tests/test_extend_jax.py. Exact equality on all six outputs."""
 
 import zlib
 
@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from bwa_flow_tpu.ops.extend_jax import extend_batch_np
 from bwa_flow_tpu.ops.extend_pallas import _extend_pallas
 from bwa_flow_tpu.utils.opts import MemOpt
-from bwa_flow_tpu_torch.ops.extend_torch import extend_core
+from bwa_flow_tpu_torch.ops.extend_torch import extend_core, extend_core16
 
 # small tensors: one intra-op thread per test process (xdist runs six)
 torch.set_num_threads(1)
@@ -49,8 +49,8 @@ def _rand_tasks(rng, n, qmax, tmax, mut=0.08):
     return query, qlen, target, tlen, h0
 
 
-def _torch_run(q, ql, t, tl, h0, mat, sc):
-    return [o.numpy() for o in extend_core(
+def _torch_run(q, ql, t, tl, h0, mat, sc, core=extend_core):
+    return [o.numpy() for o in core(
         q.shape[1], t.shape[1], *(torch.as_tensor(a) for a in
                                   (q, ql, t, tl, h0, mat)), *sc)]
 
@@ -159,4 +159,49 @@ def test_pallas_interpret_equals_jax_extend_core(pallas_case):
     """The TPU kernel's first test in any mode: it equals the XLA
     extend_core it replaced."""
     (q, ql, t, tl, h0, mat, sc), want = pallas_case
+    _assert_same(want, extend_batch_np(q, ql, t, tl, h0, mat, *sc))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_plain_extend16_equals_jax_extend_core(case):
+    """The int16-row plain version (every case is inside fits_i16)."""
+    n, qmax, tmax, mk, w, zd, mut = CASES[case]
+    rng = np.random.default_rng(zlib.crc32(case.encode()))
+    opt = mk()
+    q, ql, t, tl, h0 = _rand_tasks(rng, n, qmax, tmax, mut)
+    mat = opt.mat[:5, :5].astype(np.int32)
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins,
+          opt.w if w is None else w, 5, opt.zdrop if zd is None else zd)
+    want = extend_batch_np(q, ql, t, tl, h0, mat, *sc)
+    _assert_same(_torch_run(q, ql, t, tl, h0, mat, sc, extend_core16), want)
+
+
+@pytest.fixture(scope="module", params=[0xE47, 0x16B])
+def pallas16_case(request):
+    """The int16 Pallas body (use16=True) in interpret mode at B=16,
+    qmax=32, tmax=64, with degenerate lanes; two input seeds."""
+    rng = np.random.default_rng(request.param)
+    opt = MemOpt()
+    q, ql, t, tl, h0 = _rand_tasks(rng, 16, 32, 64)
+    ql[3] = 0
+    tl[7] = 0
+    mat = opt.mat[:5, :5].astype(np.int32)
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w, 5, opt.zdrop)
+    i32 = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
+    out = _extend_pallas(32, 64, 256, True,
+                         *(jnp.asarray(a) for a in (q, ql, t, tl, h0)),
+                         jnp.asarray(mat), *(i32(v) for v in sc),
+                         use16=True)
+    return (q, ql, t, tl, h0, mat, sc), [np.asarray(o) for o in out]
+
+
+def test_plain_extend16_equals_pallas16_interpret(pallas16_case):
+    args, want = pallas16_case
+    _assert_same(_torch_run(*args, core=extend_core16), want)
+
+
+def test_pallas16_interpret_equals_jax_extend_core(pallas16_case):
+    """The int16 TPU kernel is exact under the interpreter: it equals
+    the XLA extend_core."""
+    (q, ql, t, tl, h0, mat, sc), want = pallas16_case
     _assert_same(want, extend_batch_np(q, ql, t, tl, h0, mat, *sc))

@@ -81,22 +81,27 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
-    """The CUDA wrapper never runs the plain version: CPU tensors raise."""
-    from bwa_flow_tpu_torch.ops.extend_cuda import extend_core_cuda
+    """The CUDA wrappers never run the plain version: CPU tensors raise."""
+    from bwa_flow_tpu_torch.ops import extend_cuda
     i32 = torch.int32
     B = 4
-    with pytest.raises(ValueError, match="CUDA"):
-        extend_core_cuda(8, 8, torch.zeros((B, 8), dtype=i32),
-                         torch.ones(B, dtype=i32),
-                         torch.zeros((B, 8), dtype=i32),
-                         torch.ones(B, dtype=i32), torch.ones(B, dtype=i32),
-                         torch.zeros((5, 5), dtype=i32), 6, 1, 6, 1, 100,
-                         5, 100)
+    for wrapper in (extend_cuda.extend_core_cuda,
+                    extend_cuda.extend_core_cuda16):
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(8, 8, torch.zeros((B, 8), dtype=i32),
+                    torch.ones(B, dtype=i32), torch.zeros((B, 8), dtype=i32),
+                    torch.ones(B, dtype=i32), torch.ones(B, dtype=i32),
+                    torch.zeros((5, 5), dtype=i32), 6, 1, 6, 1, 100, 5, 100)
+    assert extend_cuda.n_launches == extend_cuda.n_launches16 == 0
 
 
 def test_extend_dispatch_follows_the_tensor_device():
     from bwa_flow_tpu_torch.ops import chain2aln_torch, extend_torch
     assert chain2aln_torch._extend_impl(torch.zeros(1)) is \
         extend_torch.extend_core
-    with pytest.raises(ValueError):
-        chain2aln_torch._extend_impl(torch.empty(1, device="meta"))
+    assert chain2aln_torch._extend_impl(torch.zeros(1), True) is \
+        extend_torch.extend_core16
+    for use16 in (False, True):
+        with pytest.raises(ValueError):
+            chain2aln_torch._extend_impl(torch.empty(1, device="meta"),
+                                         use16)

@@ -1,7 +1,8 @@
 """The port's batch pipeline on the CPU against the JAX package's
 BatchAligner and the golden straight-line aligner: SAM-for-SAM equality
 (the SE tests of tests/test_pipeline_batch.py), and the dataflow
-AlignPipeline inline and with a worker pool."""
+AlignPipeline, single-end and paired-end, inline and with a worker
+pool."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ from bwa_flow_tpu_torch.io.sam import Read
 from bwa_flow_tpu_torch.models import golden
 from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
 from bwa_flow_tpu_torch.pipeline.dataflow import AlignPipeline
-from bwa_flow_tpu_torch.utils.opts import MemOpt
+from bwa_flow_tpu_torch.utils.opts import MEM_F_PE, MemOpt
 
 # small tensors: one intra-op thread per test process (xdist runs six)
 torch.set_num_threads(1)
@@ -139,6 +140,66 @@ def test_align_pipeline_matches_golden(idx, n_workers):
     assert pipe.ba.stats["seed_batches"] == 3
 
 
+def _pairs(rng, contigs, n, L=101):
+    """Interleaved FR pairs (insert ~N(300, 20), a few substitutions),
+    plus one pair whose read2 no seed survives (mate rescue)."""
+    out = []
+    for k in range(n):
+        seq = CODE[np.frombuffer(contigs[k % len(contigs)][2], np.uint8)]
+        isize = int(rng.normal(300, 20))
+        p = int(rng.integers(0, len(seq) - isize - 1))
+        r1 = seq[p:p + L].astype(np.int32)
+        r2 = _COMP[seq[p + isize - L:p + isize][::-1]]
+        if k == n - 1:
+            r2[5::12] = (r2[5::12] + 1) % 4
+        else:
+            for r in (r1, r2):
+                m = rng.random(L) < 0.02
+                r[m] = (r[m] + 1) % 4
+        out += [r1.astype(np.uint8), r2.astype(np.uint8)]
+    return out
+
+
+def test_batch_pe_matches_golden(idx):
+    """BatchAligner.align_pe on the CPU equals golden.align_pe."""
+    fm, contigs = idx
+    seqs = _pairs(np.random.default_rng(68), contigs, 16)
+    opt = MemOpt()
+    opt.flag |= MEM_F_PE
+    want = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
+    golden.align_pe(opt, fm, want, 0)
+    reads = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
+    ba = BatchAligner(opt, fm, wave_cap=32, device="cpu")
+    ba.align_pe(reads, n_processed=0)
+    assert [r.sam for r in reads] == [r.sam for r in want]
+    assert ba.stats["ext_tasks_device"] > 0
+
+
 def test_align_pipeline_refuses_paired(idx):
-    with pytest.raises(NotImplementedError):
-        AlignPipeline(MemOpt(), idx[0], paired=True, device="cpu")
+    """Paired input is not refused: the PE AlignPipeline on the CPU
+    (per-batch insert size; dedup, rescue and pairing in a pool of two
+    workers) equals golden.align_pe batch by batch. The CLI tests drive
+    the inline tail."""
+    fm, contigs = idx
+    seqs = _pairs(np.random.default_rng(67), contigs, 24)
+    opt = MemOpt()
+    opt.flag |= MEM_F_PE
+    want = [Read(name=f"p{i >> 1}", seq=s, qual="I" * len(s), id=i)
+            for i, s in enumerate(seqs)]
+    golden.align_pe(opt, fm, want[:24], 0)
+    golden.align_pe(opt, fm, want[24:], 24)
+    reads = [Read(name=f"p{i >> 1}", seq=s, qual="I" * len(s), id=i)
+             for i, s in enumerate(seqs)]
+    out = []
+    pipe = AlignPipeline(opt, fm, paired=True, n_workers=2,
+                         device="cpu", aligner_kw=dict(wave_cap=32))
+    try:
+        n = pipe.run([reads[:24], reads[24:]], out.extend)
+    finally:
+        pipe.close()
+    assert n == len(reads)
+    assert [r.name for r in out] == [r.name for r in want]
+    for got, w in zip(out, want):
+        assert got.sam == w.sam, got.name
+    assert sum(int(r.sam.split("\t")[1]) & 0x2 > 0 for r in out) >= 40
+    assert pipe.ba.stats["ext_tasks_device"] > 0
