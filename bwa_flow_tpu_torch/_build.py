@@ -3,9 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher. At first use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, and loaded with ``ctypes``. A changed source
-therefore builds anew, and an unchanged one loads from the previous
-build. There is no fallback: a missing ``nvcc`` or a failed build raises.
+source, the shared headers ``csrc/*.cuh`` and the flags, and loaded with
+``ctypes``. A changed source therefore builds anew, and an unchanged one
+loads from the previous build. nvcc's output (with ``-Xptxas -v``: each
+kernel's registers, shared memory and spills) is kept beside the library
+and returned by ``build_log``. There is no fallback: a missing ``nvcc``
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -45,8 +48,16 @@ def nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current build of csrc/<name>.cu ("" before
+    the first build)."""
+    log = lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def _start(name: str):
@@ -70,6 +81,7 @@ def _finish(name: str, job) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)   # atomic: concurrent builders never see halves
 
 

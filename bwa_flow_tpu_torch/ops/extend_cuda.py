@@ -10,12 +10,13 @@ kernel).
 
 What bounds them on the H100: operations over the banded DP cells (10
 per cell from the recurrence; the int16 rows allow two cells per packed
-32-bit operation). The design is the simple exact one: one thread per
-task runs bwa's scalar row loop and stops when its own task breaks or
-reaches tlen. The int32 kernel keeps its H/E rows in a task-minor global
-scratch buffer (a warp's accesses coalesce); the int16 kernel keeps them
-in shared memory. Both leave the card latency-bound with B/32 warps; a
-warp per task with a prefix-max F scan is the later fast version.
+32-bit operation). Both run one warp per task (csrc/ksw_warp.cuh), 4
+tasks a block: the warp computes a target row for all query columns at
+once, one column a lane (int32) or two a lane in one 32-bit word
+(int16), with F from a shuffle prefix-max scan; the task's DP rows stay
+in its lanes' registers, its query profile in shared memory. Both take
+qmax < 256. What holds them back is the latency of a row's dependency
+chain (PERF.md).
 """
 
 from __future__ import annotations
@@ -56,14 +57,14 @@ def i16_exact(qmax: int, h0max: int, max_mat: int, end_bonus: int) -> bool:
         < (1 << 13) - 256
 
 
-def _fn(name: str, entry: str, n_ptr: int):
+def _fn(name: str, entry: str):
     """ctypes function `entry` of csrc/<name>.cu: 3 ints, 7 pointers, 6
-    ints, then n_ptr pointers (scratch, out, stream)."""
+    ints, then the out pointer and the stream."""
     if name not in _FNS:
         lib = _build.load(name)
         fn = getattr(lib, entry)
         fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * n_ptr)
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         lib.ksw_error_string.argtypes = [ctypes.c_int]
         lib.ksw_error_string.restype = ctypes.c_char_p
@@ -104,13 +105,13 @@ def _checked(who: str, qmax: int, tmax: int, q, qlen, t, tlen, h0, mat, w):
 
 
 def _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
-            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, *ptrs) -> None:
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(B, qmax, tmax, q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
             tlen.data_ptr(), h0.data_ptr(), w.data_ptr(), mat.data_ptr(),
             _as_int(o_del), _as_int(e_del), _as_int(o_ins), _as_int(e_ins),
-            _as_int(end_bonus), _as_int(zdrop), *ptrs, stream)
+            _as_int(end_bonus), _as_int(zdrop), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ksw_extend2 launch failed: "
                            f"{err(rc).decode()} ({rc})")
@@ -123,16 +124,17 @@ def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
     tmax], qlen/tlen/h0 int32[B], mat int32[5, 5], all contiguous on one
     CUDA device; `w` an int or int32[B]; other scalars ints or 0-d
     tensors. Returns 6 int32[B] tensors (score, qle, tle, gtle, gscore,
-    max_off). Launches on the current stream and does not synchronise."""
+    max_off). Launches on the current stream and does not synchronise.
+    The launch fails, and this raises, when qmax >= 256 or when the
+    shared memory of a block (4 tasks' query profiles and target symbols)
+    exceeds the 227 KB a block may have."""
     global n_launches
     dev, B, w = _checked("extend_core_cuda", qmax, tmax, q, qlen, t, tlen,
                          h0, mat, w)
-    eh = torch.empty((2, qmax + 1, B), dtype=torch.int32, device=dev)
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
-    fn, err = _fn("ksw_extend", "ksw_extend2_launch", 3)
+    fn, err = _fn("ksw_extend", "ksw_extend2_launch")
     _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
-            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, eh.data_ptr(),
-            out.data_ptr())
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out)
     n_launches += 1
     return tuple(out[k] for k in range(6))
 
@@ -140,20 +142,19 @@ def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
 def extend_core_cuda16(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
                        o_del, e_del, o_ins, e_ins, w, end_bonus, zdrop
                        ) -> tuple[torch.Tensor, ...]:
-    """Batched ksw_extend2 on the card with int16 DP rows in shared
-    memory; the signature, checks and outputs of extend_core_cuda.
+    """Batched ksw_extend2 on the card with int16 DP rows, two columns
+    a 32-bit word; the signature, checks, outputs and launch limits of
+    extend_core_cuda.
 
     Precondition: i16_exact(qmax, max(h0), mat.max(), end_bonus), the
     bound of fits_i16; outside it the rows overflow and the results are
-    wrong. The kernel does not check it. The launch fails, and this
-    raises, when the rows of a block, 2 x (qmax+1) x 32 int16, exceed the
-    227 KB of shared memory a block may have."""
+    wrong. The kernel does not check it."""
     global n_launches16
     dev, B, w = _checked("extend_core_cuda16", qmax, tmax, q, qlen, t,
                          tlen, h0, mat, w)
     out = torch.empty((6, B), dtype=torch.int32, device=dev)
-    fn, err = _fn("ksw_extend16", "ksw_extend2_i16_launch", 2)
+    fn, err = _fn("ksw_extend16", "ksw_extend2_i16_launch")
     _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
-            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out.data_ptr())
+            o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out)
     n_launches16 += 1
     return tuple(out[k] for k in range(6))

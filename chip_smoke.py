@@ -6,14 +6,21 @@ Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
      the torch/CUDA versions, and builds every CUDA kernel of the main
      paths from bwa_flow_tpu_torch/csrc/ (one nvcc per source, all
-     started together).
+     started together); prints each kernel's registers, shared memory
+     and spills as ptxas reports them.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
      degenerate lanes) under three scorings, all inside the int16
      bound; every output must be equal (tolerance 0: all values are
      integers), and the int16 kernel must also equal the int32 one.
-     Kernels and plain versions are timed with CUDA events.
+     Kernels and plain versions are timed with CUDA events. Then both
+     kernels on the chunk-edge mix (make_edge_tasks: query lengths at
+     the 32- and 64-column chunk edges, per-lane band widths, h0 up to
+     the int16 bound, degenerate lanes) at B=96 and in the partial
+     blocks B=1 and B=5, under two scorings: again equal to their plain
+     versions and to each other; and the int32 kernel on the same mix
+     with 2^23 added to h0 (its wide-score path).
   3. the single-end path: a 4.6 Mbp repeat-realistic genome and 8192 x
      151 bp reads (1% substitutions) from fixed seeds; `index`, then
      `mem -t 8 --batch-reads 4096` on the card through the CLI (int32
@@ -32,7 +39,8 @@ Phases:
      each kernel's summed device time over its path.
   5. each kernel at the mean wave size of the path that launched it
      (waves are trimmed to their filled slots): against its plain
-     version, timed, with its bound.
+     version, timed, with its bound; and the time a target row costs it
+     (row_cost_ns), the latency that sets its time on the path.
   6. one JSON line describing the kernels (ms, plain_ms and bound_ms at
      the path's mean wave; *_b4096 at B=4096), the device line, and as
      the last line {"ok": true, "device": {...}}.
@@ -82,6 +90,14 @@ OPS_PER_CELL = 10
 # 16x2 DPX instructions (__viaddmax_s16x2, __vimax3_s16x2). The data
 # sheet gives no DPX rate, so a packed op counts at the int32 rate.
 CELLS_PER_OP = {"ksw_extend2": 1, "ksw_extend2_i16": 2}
+
+# The chunk-edge mix of the warp kernels (32 columns a chunk for int32
+# rows, 64 for int16): query lengths on both sides of each edge up to
+# QMAX, and the band widths of the band-doubling retry's lanes
+EDGE_QLENS = (1, 31, 32, 33, 63, 64, 65, 127, 128, 129, 159, 160)
+EDGE_WS = (1, 4, 8, 100, 200)
+EDGE_B = 96
+EDGE_SEED = 0xED6E
 
 CODE = np.full(256, 4, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
@@ -241,10 +257,63 @@ def make_ext_tasks(rng, genome, n):
     return q, ql, t, tl, h0
 
 
-def _time_ms(fn, n: int) -> float:
+def edge_h0max(max_mat: int = 2, end_bonus: int = 5) -> int:
+    """The largest h0 that keeps the int16 rows exact (i16_exact) at
+    qmax=QMAX for scores up to max_mat and the end bonus."""
+    return (1 << 13) - 256 - 1 - (QMAX + 2) * max(max_mat, 1) \
+        - max(end_bonus, 0)
+
+
+def make_edge_tasks(rng, n: int, h0max: int):
+    """The chunk-edge mix: qlen cycling through EDGE_QLENS, tlen in 1..TMAX,
+    per-lane w from EDGE_WS, h0 log-uniform in 1..h0max, symbols 0..4
+    (4% N), the query random past qlen, targets copied from the query
+    with 0-40% substitutions, and degenerate lanes (qlen == 0, tlen ==
+    0). Returns (q, qlen, t, tlen, h0, w) as int32 arrays."""
+    sym = np.array([0.24, 0.24, 0.24, 0.24, 0.04])
+    q = rng.choice(5, (n, QMAX), p=sym).astype(np.int32)
+    ql = np.asarray(EDGE_QLENS, np.int32)[np.arange(n) % len(EDGE_QLENS)]
+    tl = rng.integers(1, TMAX + 1, n).astype(np.int32)
+    h0 = np.exp(rng.uniform(0, np.log(h0max), n)).astype(np.int32)
+    h0 = np.clip(h0, 1, h0max)
+    t = np.zeros((n, TMAX), np.int32)
+    for b in range(n):
+        src = np.resize(q[b, :ql[b]], tl[b])
+        m = rng.random(tl[b]) < rng.choice([0.0, 0.02, 0.1, 0.4])
+        src[m] = rng.choice(5, int(m.sum()), p=sym)
+        t[b, :tl[b]] = src
+    w = rng.choice(EDGE_WS, n).astype(np.int32)
+    ql[7::23] = 0                # degenerate lanes
+    tl[11::29] = 0
+    return q, ql, t, tl, h0, w
+
+
+def scorings():
+    """(name, MemOpt, zdrop) of the kernel checks: bwa defaults, and
+    asymmetric gaps without z-drop."""
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+    opt = MemOpt()
+    asym = MemOpt(o_del=5, e_del=2, o_ins=9, e_ins=1, a=2, b=5)
+    asym.refresh_mat()
+    return [("bwa defaults", opt, opt.zdrop),
+            ("zdrop=0 asymmetric gaps", asym, 0)]
+
+
+def _time_ms(fn, n: int, fill: bool = False) -> float:
+    """Mean device ms of fn over n calls, from CUDA events. With fill, a
+    spin kernel (torch.cuda._sleep) first holds the stream for about
+    twice the host's time to enqueue the n calls, so that the events
+    time the calls' device work back to back and not the host's enqueue
+    rate (a wrapper's host work can outlast a short kernel)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    if fill:
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(min(2 * n * host_s, 5.0) * 2e9))
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -299,19 +368,15 @@ def phase_kernels(genome: np.ndarray, device) -> dict:
     import torch
 
     from bwa_flow_tpu_torch.ops import extend_cuda, extend_torch
-    from bwa_flow_tpu_torch.utils.opts import MemOpt
 
     args = _ext_args(genome, device)
     h0 = args[4].cpu().numpy()
-    opt = MemOpt()
-    asym = MemOpt(o_del=5, e_del=2, o_ins=9, e_ins=1, a=2, b=5)
-    asym.refresh_mat()
-    scorings = [("bwa defaults", opt, opt.w, opt.zdrop),
-                ("narrow band w=10", opt, 10, opt.zdrop),
-                ("zdrop=0 asymmetric gaps", asym, asym.w, 0)]
+    (dname, opt, dzd), (aname, asym, azd) = scorings()
     kernels = _kernels()
     res = {name: dict(max_abs_err=0) for name in kernels}
-    for si, (sname, o, w, zd) in enumerate(scorings):
+    for si, (sname, o, w, zd) in enumerate([
+            (dname, opt, opt.w, dzd), ("narrow band w=10", opt, 10, dzd),
+            (aname, asym, asym.w, azd)]):
         if not extend_cuda.i16_exact(QMAX, int(h0.max()), int(o.mat.max()),
                                      o.pen_clip3):
             raise SystemExit(f"scoring {sname} is outside the int16 bound")
@@ -336,7 +401,8 @@ def phase_kernels(genome: np.ndarray, device) -> dict:
                 err32, bad32 = _diff(got, got32)
                 err, bad = max(err, err32), bad + bad32
                 what += f", {bad32} vs the int32 kernel"
-            ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 50)
+            ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 50,
+                          fill=True)
             plain_ms = _time_ms(lambda: plain(QMAX, TMAX, *args, mat, *sc),
                                 20 if si == 0 else 5)
             print(f"[kernel] {name} {sname}: B={B_EXT} {what}, max |err| "
@@ -353,6 +419,69 @@ def phase_kernels(genome: np.ndarray, device) -> dict:
     return res
 
 
+def phase_edge_mix(device, res: dict) -> None:
+    """Both kernels on the chunk-edge mix at B=EDGE_B, B=1 and B=5 (4
+    tasks a block, so the last two are partial blocks): each equal to
+    its plain version and to the other kernel, 0 mismatching values.
+    Refuses a scoring for which the mix is outside i16_exact."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import extend_cuda
+
+    q, ql, t, tl, h0, w = make_edge_tasks(np.random.default_rng(EDGE_SEED),
+                                          EDGE_B, edge_h0max())
+    kernels = _kernels()
+    for sname, o, zd in scorings():
+        if not extend_cuda.i16_exact(QMAX, int(h0.max()), int(o.mat.max()),
+                                     o.pen_clip3):
+            raise SystemExit(f"the edge mix is outside the int16 bound "
+                             f"under {sname}")
+        mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
+                              dtype=torch.int32, device=device)
+        for n in (EDGE_B, 1, 5):
+            args = [torch.as_tensor(np.ascontiguousarray(a[:n]),
+                                    device=device)
+                    for a in (q, ql, t, tl, h0)]
+            sc = (o.o_del, o.e_del, o.o_ins, o.e_ins,
+                  torch.as_tensor(w[:n].copy(), device=device),
+                  o.pen_clip3, zd)
+            got = {}
+            for name, (kern, plain) in kernels.items():
+                got[name] = kern(QMAX, TMAX, *args, mat, *sc)
+                torch.cuda.synchronize()
+                err, bad = _diff(got[name], plain(QMAX, TMAX, *args, mat,
+                                                  *sc))
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               err)
+                print(f"[edge] {name} {sname}: B={n} mismatching values "
+                      f"{bad} vs plain, max |err| {err}")
+                if bad:
+                    raise SystemExit(f"{name} disagrees on the edge mix "
+                                     f"at B={n} under {sname}")
+            err, bad = _diff(got["ksw_extend2_i16"], got["ksw_extend2"])
+            print(f"[edge] ksw_extend2_i16 vs ksw_extend2 {sname}: B={n} "
+                  f"mismatching values {bad}")
+            if bad:
+                raise SystemExit(f"the kernels disagree on the edge mix at "
+                                 f"B={n} under {sname}")
+        # scores of 2^23 and more, where the int32 kernel reduces the row
+        # max and its column apart (outside the int16 bound)
+        kern, plain = kernels["ksw_extend2"]
+        args = [torch.as_tensor(np.ascontiguousarray(a), device=device)
+                for a in (q, ql, t, tl, h0 + np.int32(1 << 23))]
+        sc = (o.o_del, o.e_del, o.o_ins, o.e_ins,
+              torch.as_tensor(w, device=device), o.pen_clip3, zd)
+        err, bad = _diff(kern(QMAX, TMAX, *args, mat, *sc),
+                         plain(QMAX, TMAX, *args, mat, *sc))
+        res["ksw_extend2"]["max_abs_err"] = max(
+            res["ksw_extend2"]["max_abs_err"], err)
+        print(f"[edge] ksw_extend2 {sname}, h0 + 2^23: B={EDGE_B} "
+              f"mismatching values {bad} vs plain, max |err| {err}")
+        if bad:
+            raise SystemExit(f"ksw_extend2 disagrees at h0 + 2^23 under "
+                             f"{sname}")
+
+
 def phase_wave_shape(genome: np.ndarray, device, res: dict,
                      path: dict) -> None:
     """Each kernel at the mean wave of the path that launched it (the
@@ -364,7 +493,8 @@ def phase_wave_shape(genome: np.ndarray, device, res: dict,
     from bwa_flow_tpu_torch.utils.opts import MemOpt
 
     o = MemOpt()
-    for name, (kern, plain) in _kernels().items():
+    kernels = _kernels()
+    for name, (kern, plain) in kernels.items():
         n = max(1, round(path[name]["tasks_per_launch"]))
         args = _ext_args(genome, device, n)
         mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
@@ -376,7 +506,8 @@ def phase_wave_shape(genome: np.ndarray, device, res: dict,
         got = kern(QMAX, TMAX, *args, mat, *sc)
         torch.cuda.synchronize()
         err, bad = _diff(got, want)
-        ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 200)
+        ms = _time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 200,
+                      fill=True)
         plain_ms = _time_ms(lambda: plain(QMAX, TMAX, *args, mat, *sc), 3)
         b = _bound(name, args, stats["cells"])
         r = res[name]
@@ -389,6 +520,51 @@ def phase_wave_shape(genome: np.ndarray, device, res: dict,
               f"({b['bound_by']}), {b['cells']} cells")
         if bad:
             raise SystemExit(f"{name} disagrees at B={n}")
+        # the other kernel on the same wave, in the same call
+        other = next(k for k in kernels if k != name)
+        r["path_other_ms"] = _time_ms(
+            lambda: kernels[other][0](QMAX, TMAX, *args, mat, *sc), 200,
+            fill=True)
+        print(f"[wave] {other} on the same B={n} wave: "
+              f"{r['path_other_ms']:.4f} ms")
+        r["row_ns"] = row_cost_ns(device, kern, plain)
+        print(f"[wave] {name}: {r['row_ns']:.1f} ns a target row at qlen 130 "
+              f"(B=84 tasks of 60 and 250 rows)")
+
+
+def row_cost_ns(device, kern, plain, qlen: int = 130,
+                tlens=(60, 250), n: int = 84) -> float:
+    """ns a target row costs the kernel: n tasks whose target repeats the
+    query (qlen columns), h0 = 3000, w = 500 and no z-drop run exactly
+    min(tlen, 2 qlen) rows each (the band cap makes w = qlen; no row
+    breaks, none shrinks the band), so the difference of the kernel's
+    times at the two tlens over the rows between them is one row's
+    dependency chain. The kernel must equal its plain version there."""
+    import torch
+
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    o = MemOpt()
+    mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
+                          dtype=torch.int32, device=device)
+    sc = (o.o_del, o.e_del, o.o_ins, o.e_ins, 500, o.pen_clip3, 0)
+    q = np.random.default_rng(0x20E).integers(0, 4, (n, QMAX), np.int32)
+    ms = []
+    for tl in tlens:
+        t = np.zeros((n, TMAX), np.int32)
+        t[:, :tl] = np.resize(q[0, :qlen], tl)
+        q[:, :qlen] = q[0, :qlen]
+        args = [torch.as_tensor(a, device=device) for a in
+                (q, np.full(n, qlen, np.int32), t, np.full(n, tl, np.int32),
+                 np.full(n, 3000, np.int32))]
+        got = kern(QMAX, TMAX, *args, mat, *sc)
+        torch.cuda.synchronize()
+        if _diff(got, plain(QMAX, TMAX, *args, mat, *sc))[1]:
+            raise SystemExit("a kernel disagrees on the row-cost tasks")
+        ms.append(_time_ms(lambda: kern(QMAX, TMAX, *args, mat, *sc), 100,
+                           fill=True))
+    rows = [min(tl, 2 * qlen) for tl in tlens]
+    return (ms[1] - ms[0]) / (rows[1] - rows[0]) * 1e6
 
 
 @contextlib.contextmanager
@@ -644,6 +820,10 @@ def main() -> int:
     _build.build_all(["ksw_extend", "ksw_extend16"])
     print(f"[build] csrc/ksw_extend.cu + csrc/ksw_extend16.cu (one nvcc "
           f"each, in parallel): {time.perf_counter() - t0:.2f} s")
+    for name in ("ksw_extend", "ksw_extend16"):
+        for line in _build.build_log(name).splitlines():
+            if any(k in line for k in ("Compiling entry", "spill", "Used")):
+                print(f"[build] {name}.cu ptxas: {line.strip()}")
 
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -657,6 +837,7 @@ def main() -> int:
 
     cuda = torch.device("cuda")
     kres = phase_kernels(genome, cuda)
+    phase_edge_mix(cuda, kres)
     mres = phase_main_path(WORK, "cuda")
     pres = phase_pe_path(WORK, "cuda")
     phase_wave_shape(genome, cuda, kres, {"ksw_extend2": mres["path"],
@@ -665,15 +846,14 @@ def main() -> int:
     # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
     # *_b4096 at the widest wave
     kernels = []
-    for name, source, line, body, res in (
-            ("ksw_extend2", "ksw_extend.cu", 550, "_make_kernel", mres),
-            ("ksw_extend2_i16", "ksw_extend16.cu", 242, "_make_kernel16",
-             pres)):
+    for name, source, body, res in (
+            ("ksw_extend2", "ksw_extend.cu", "_make_kernel", mres),
+            ("ksw_extend2_i16", "ksw_extend16.cu", "_make_kernel16", pres)):
         k = kres[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bwa_flow_tpu_torch/csrc/{source}",
-            "replaces": f"bwa_flow_tpu/ops/extend_pallas.py:{line}",
+            "replaces": "bwa_flow_tpu/ops/extend_pallas.py:550",
             "replaces_kernel": f"bwa_flow_tpu/ops/extend_pallas.py::{body}",
             "checked": True, "launches": res["launches"],
             "max_abs_err": k["max_abs_err"], "ms": k["path_ms"],
@@ -682,6 +862,7 @@ def main() -> int:
             "B": k["path_B"], "cells": k["path_cells"],
             "bytes": k["path_bytes"],
             "path_device_ms": res["path"]["device_ms"],
+            "row_ns": k["row_ns"], "other_kernel_ms": k["path_other_ms"],
             "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
             "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 CPU path and yardstick), with int32 and with int16 DP rows, against the
 JAX package: the Pallas kernel _extend_pallas (both bodies) run in
 interpret mode, and the XLA extend_core, over the task mixes of
-tests/test_extend_jax.py. Exact equality on all six outputs."""
+tests/test_extend_jax.py and over chip_smoke.py's chunk-edge mix (the
+inputs its phase 2 hands the CUDA kernels on the card). Exact equality
+on all six outputs."""
 
 import zlib
 
@@ -12,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
 from bwa_flow_tpu.ops.extend_jax import extend_batch_np
 from bwa_flow_tpu.ops.extend_pallas import _extend_pallas
 from bwa_flow_tpu.utils.opts import MemOpt
@@ -205,3 +208,38 @@ def test_pallas16_interpret_equals_jax_extend_core(pallas16_case):
     the XLA extend_core."""
     (q, ql, t, tl, h0, mat, sc), want = pallas16_case
     _assert_same(want, extend_batch_np(q, ql, t, tl, h0, mat, *sc))
+
+
+@pytest.fixture(scope="module", params=[0, 1], ids=["defaults", "asym"])
+def edge_case(request):
+    """chip_smoke.py's chunk-edge mix at its card shapes (B=96, qmax=160,
+    tmax=512, per-lane w), with the JAX package's extend_core run on
+    each band width's lanes."""
+    _, opt, zd = chip_smoke.scorings()[request.param]
+    q, ql, t, tl, h0, w = chip_smoke.make_edge_tasks(
+        np.random.default_rng(chip_smoke.EDGE_SEED), chip_smoke.EDGE_B,
+        chip_smoke.edge_h0max())
+    mat = opt.mat[:5, :5].astype(np.int32)
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+    want = [np.zeros(len(q), np.int32) for _ in range(6)]
+    for wv in np.unique(w):
+        out = extend_batch_np(q, ql, t, tl, h0, mat, *sc, int(wv),
+                              opt.pen_clip3, zd)
+        sel = w == wv
+        for k in range(6):
+            want[k][sel] = np.asarray(out[k])[sel]
+    return (q, ql, t, tl, h0, mat, sc, w, opt.pen_clip3, zd), want
+
+
+@pytest.mark.parametrize("core", [extend_core, extend_core16],
+                         ids=["int32", "int16"])
+def test_plain_extend_chunk_edge_mix(edge_case, core):
+    """Query lengths at the warp kernels' 32- and 64-column chunk edges,
+    the band-doubling retry's widths, h0 up to the int16 bound and
+    degenerate lanes: both plain versions equal the JAX extend_core."""
+    (q, ql, t, tl, h0, mat, sc, w, eb, zd), want = edge_case
+    got = [o.numpy() for o in core(
+        q.shape[1], t.shape[1],
+        *(torch.as_tensor(a) for a in (q, ql, t, tl, h0, mat)), *sc,
+        torch.as_tensor(w), eb, zd)]
+    _assert_same(got, want)
