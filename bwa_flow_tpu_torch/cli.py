@@ -1,8 +1,11 @@
 """Command-line front-end: `bwa_flow_tpu_torch index|mem`.
 
 Port of bwa_flow_tpu/cli.py for `mem` on single-end and paired-end
-reads (two FASTQs, or one interleaved with -p). Options of later slices
-(--sort, multi-process runs) exit with a message.
+reads (two FASTQs, or one interleaved with -p), with SAM or a
+coordinate-sorted BAM (--sort) as output, in one process or in several
+(--nprocs/--proc-id/--coordinator, --dist pull|stride). Options of later
+slices (--local-devices, --validate-every, --device-timeout, --ext-mode)
+exit with a message.
 
 Mirrors the reference's option pipeline — gflags mirrored into a synthetic
 argv re-parsed by bwa's getopt (src/preprocess.cpp:70-389)
@@ -14,17 +17,26 @@ read-type presets follow preprocess.cpp:55-68, 291-320.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 import time
 
-from . import __version__
+import torch
+
+from . import __version__, resolve_device
 from .index.build import index_fasta
 from .index.io import load_index, save_index
 from .io.fastq import read_batches
+from .parallel import distributed as dist
 from .utils.opts import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
                          MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_PRIMARY5,
                          MEM_F_REF_HDR, MEM_F_SMARTPE, MEM_F_SOFTCLIP,
                          MemOpt)
+
+_LATER = "is not ported to bwa_flow_tpu_torch yet"
+_LATER_OPTS = ("--local-devices", "--validate-every", "--device-timeout",
+               "--ext-mode")
 
 
 def _mem_parser() -> argparse.ArgumentParser:
@@ -81,13 +93,25 @@ def _mem_parser() -> argparse.ArgumentParser:
     a("--disable-markdup", action="store_true", dest="disable_markdup",
       help="skip streaming duplicate marking (on by default, as in the "
            "reference pipeline)")
+    a("--sort", action="store_true", dest="sort",
+      help="bucket-sort and write a coordinate-sorted BAM to -o")
+    a("--temp-dir", dest="temp_dir", default=None)
+    a("--num-buckets", type=int, dest="num_buckets", default=512)
     a("--filter", type=int, dest="filter_mask", default=0,
       help="drop alignments matching this FLAG mask at output")
-    # options of later slices: accepted, then refused with a message
-    a("--sort", action="store_true", dest="sort")
+    a("--remove-duplicates", action="store_true", dest="remove_dups")
+    # multi-process (bwa-mpi analog): run one process per rank with
+    # --nprocs/--proc-id (or BWA_TPU_NPROCS/BWA_TPU_PROC_ID env)
     a("--nprocs", type=int, default=None)
     a("--proc-id", type=int, dest="proc_id", default=None)
     a("--coordinator", dest="coordinator", default=None)
+    a("--dist", choices=("pull", "stride"), default="pull",
+      help="multi-process batch assignment: pull = dynamic work queue on "
+      "rank 0 (the reference's MPI master loop, self-load-balancing); "
+      "stride = static every-Nth-batch")
+    # options of later slices: accepted, then refused with a message
+    for opt in _LATER_OPTS:
+        a(opt, default=None)
     a("--help", action="help")
     a("ref")
     a("fastq", nargs="+")
@@ -239,17 +263,38 @@ def _rg_id(rg_line) -> str:
     return ""
 
 
-_LATER = "is not ported to bwa_flow_tpu_torch yet"
-
-
 def main_mem(argv: list[str]) -> int:
     args = _mem_parser().parse_args(argv)
-    if args.sort:
-        raise SystemExit(f"[E] --sort {_LATER}")
-    if args.nprocs is not None or args.proc_id is not None \
-            or args.coordinator is not None:
-        raise SystemExit(f"[E] multi-process runs {_LATER}")
+    for name in _LATER_OPTS:
+        if getattr(args, name[2:].replace("-", "_")) is not None:
+            raise SystemExit(f"[E] {name} {_LATER}")
+    if args.sort and args.output == "-":
+        raise SystemExit("[E] --sort requires -o FILE.bam")
     opt = build_opt(args)
+    pid, nprocs = dist.init_distributed(args.coordinator, args.nprocs,
+                                        args.proc_id)
+    try:
+        return _mem(args, argv, opt, pid, nprocs)
+    finally:
+        dist.shutdown()
+
+
+def _mem(args, argv, opt, pid: int, nprocs: int) -> int:
+    """`mem` as rank `pid` of `nprocs` (the process group, if any, is
+    formed and destroyed by the caller)."""
+    device = args.device
+    if nprocs > 1:
+        # per-rank output (the reference's <host>-<pid> dirs,
+        # mpi_main.cpp:294-318)
+        if args.output != "-":
+            root, dot, ext = args.output.rpartition(".")
+            args.output = f"{root or ext}.part{pid:03d}" + \
+                (dot + ext if root else "")
+        if device == "cuda" and not args.no_device:
+            # ranks take the host's cards in turn, as each JAX process
+            # uses its own local chips
+            resolve_device(device)
+            device = f"cuda:{pid % torch.cuda.device_count()}"
     t0 = time.time()
     fm = load_index(args.ref, ignore_alt=args.ignore_alt)
     print(f"[M::mem] loaded index {args.ref} in {time.time()-t0:.1f}s",
@@ -277,8 +322,20 @@ def main_mem(argv: list[str]) -> int:
         from .dedup.markdup import make_markdup_stage
         markdup = make_markdup_stage(fm, ignore_unmated=True)
 
-    out = sys.stdout if args.output == "-" else open(args.output, "w")
-    out.write(header)
+    bucket = None
+    out = None
+    if args.sort:
+        from .pipeline.sort import BucketSort
+        temp_dir = args.temp_dir or tempfile.mkdtemp(prefix="bwaflow_")
+        if nprocs > 1:
+            # per-rank bucket dirs on shared filesystems (the reference's
+            # <host>-<pid> output dirs, mpi_main.cpp:294-318)
+            temp_dir = os.path.join(temp_dir, f"rank{pid:03d}")
+        bucket = BucketSort(fm.bns.anns, temp_dir, args.num_buckets,
+                            drop_dups=args.remove_dups)
+    else:
+        out = sys.stdout if args.output == "-" else open(args.output, "w")
+        out.write(header)
     fmask = args.filter_mask
     stats = {"n": 0, "t": time.time()}
 
@@ -291,7 +348,10 @@ def main_mem(argv: list[str]) -> int:
                 sam = "".join(
                     l + "\n" for l in sam.splitlines()
                     if not int(l.split("\t", 2)[1]) & fmask)
-            out.write(sam)
+            if bucket is not None:
+                bucket.write_sam_text(sam)
+            else:
+                out.write(sam)
         stats["n"] += len(chunk)
         dt = time.time() - stats["t"]
         print(f"[M::mem] processed {stats['n']} reads "
@@ -299,10 +359,32 @@ def main_mem(argv: list[str]) -> int:
 
     fq2 = args.fastq[1] if len(args.fastq) > 1 else None
 
+    wq_server = None
+    wq_tally: dict = {}
+    pull = nprocs > 1 and args.dist == "pull"
+    if pull:
+        # rank 0 hosts the work-queue service next to the process
+        # group's store; every rank (0 included) pulls from it. Host,
+        # port and token derive from the RESOLVED coordinator (flag ->
+        # env -> default), so env-configured runs do not pull localhost
+        # and flag-configured jobs do not share one token.
+        wq_host, wq_port = dist.workqueue_addr(args.coordinator)
+        wq_token = dist.run_token(args.coordinator)
+        if pid == 0:
+            wq_server = dist.WorkQueueServer(host=wq_host, port=wq_port,
+                                             token=wq_token)
+
     def batches():
         it = read_batches(args.fastq[0], fq2,
                           chunk_bp=opt.chunk_size * opt.n_threads,
                           interleaved=args.smart_pairing)
+        if pull:
+            it = dist.pull_batches(
+                it, dist.WorkQueueClient(wq_host, wq_port,
+                                         token=wq_token),
+                tally=wq_tally)
+        elif nprocs > 1:
+            it = dist.shard_batches(it, pid, nprocs)
         for batch in it:
             if not args.append_comment:
                 # FASTA/Q comments reach the output only with -C
@@ -316,32 +398,58 @@ def main_mem(argv: list[str]) -> int:
             else:
                 yield batch
 
-    if args.no_device:
-        from .models import golden
-        for chunk in batches():
-            base = chunk[0].id if chunk else 0
-            if paired:
-                golden.align_pe(opt, fm, chunk, base, pes0, rg)
-            else:
-                golden.align_se(opt, fm, chunk, base, rg)
-            emit(chunk)
-    else:
-        from .pipeline.dataflow import AlignPipeline
-        pipe = AlignPipeline(opt, fm, paired=paired,
-                             n_workers=max(0, args.n_threads - 1),
-                             rg_id=rg, pes0=pes0,
-                             mp_context=args.mp_context, device=args.device)
-        try:
-            pipe.run(batches(), emit)
-        finally:
-            pipe.close()
-        last_run_stats.clear()
-        last_run_stats.update(pipe.ba.stats)
-    if out is not sys.stdout:
-        out.close()
-    if markdup is not None:
-        print(f"[M::mem] markdup: {markdup.state.dup_count} duplicate "
-              f"blocks", file=sys.stderr)
+    try:
+        if args.no_device:
+            from .models import golden
+            for chunk in batches():
+                # read ids are global across ranks/batches: the hash_64
+                # primary tie-break must not depend on rank-local counting
+                base = chunk[0].id if chunk else 0
+                if paired:
+                    golden.align_pe(opt, fm, chunk, base, pes0, rg)
+                else:
+                    golden.align_se(opt, fm, chunk, base, rg)
+                emit(chunk)
+        else:
+            from .ops import extend_cuda
+            from .pipeline.dataflow import AlignPipeline
+            n0 = (extend_cuda.n_launches, extend_cuda.n_launches16)
+            pipe = AlignPipeline(opt, fm, paired=paired,
+                                 n_workers=max(0, args.n_threads - 1),
+                                 rg_id=rg, pes0=pes0,
+                                 mp_context=args.mp_context, device=device)
+            try:
+                pipe.run(batches(), emit)
+            finally:
+                # the pool's children inherit rank 0's listening socket:
+                # join them before the work-queue server closes
+                pipe.close()
+            last_run_stats.clear()
+            last_run_stats.update(pipe.ba.stats)
+            print(f"[M::mem] kernel launches: ksw_extend2 "
+                  f"{extend_cuda.n_launches - n0[0]}, ksw_extend2_i16 "
+                  f"{extend_cuda.n_launches16 - n0[1]}", file=sys.stderr)
+        if bucket is not None:
+            from .pipeline import sort
+            sort.merge_sorted_bam(bucket.close(), args.output,
+                                  fm.bns.anns, header)
+            print(f"[M::mem] sorted BAM written to {args.output}",
+                  file=sys.stderr)
+        elif out is not sys.stdout:
+            out.close()
+        if markdup is not None:
+            print(f"[M::mem] markdup: {markdup.state.dup_count} duplicate "
+                  f"blocks", file=sys.stderr)
+        if nprocs > 1:
+            if pull:
+                # exact-partition check: raises if any batch index was
+                # consumed but never aligned (silent read loss)
+                dist.verify_partition(wq_tally["n_batches"],
+                                      wq_tally["n_aligned"])
+            dist.barrier()  # final Barrier (mpi_main.cpp:319-325)
+    finally:
+        if wq_server is not None:
+            wq_server.close()
     print(f"[M::mem] total {time.time()-t0:.1f}s", file=sys.stderr)
     return 0
 

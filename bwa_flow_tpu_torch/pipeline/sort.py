@@ -1,0 +1,167 @@
+"""Bucket-partitioned sorting and sorted-BAM merge (two-phase design).
+
+Port of bwa_flow_tpu/pipeline/sort.py (its pure-Python route).
+
+Phase 1 (during alignment): BucketSort partitions finished alignments into
+`num_buckets` genome-position buckets, each a self-contained temp file plus
+a .bed interval file — the reference's restartable artifact boundary
+(BucketSortStage, src/BucketSortStage.cpp:43-164).
+
+Phase 2 (after alignment): each bucket is loaded, sorted in memory by the
+samtools key ((tid<<32|pos+1)<<1|is_rev — bam1_lt,
+src/Pipeline.cpp:31-42), and appended to the output BAM
+(IndexGen -> BamRead -> BamSort -> BamWrite pipeline,
+src/Bam*Stage.cpp). Unmapped reads go to the final bucket.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from ..io.bam import BamWriter, sam_line_to_bam
+
+
+def sort_key_from_raw(raw: bytes) -> int:
+    """bam1_lt key from a raw BAM record (tid, pos, strand)."""
+    tid, pos = struct.unpack_from("<ii", raw, 4)
+    flag = struct.unpack_from("<H", raw, 18)[0]
+    utid = tid & 0xFFFFFFFF  # -1 (unmapped) sorts last
+    return (((utid << 32) | (pos + 1)) << 1) | ((flag >> 4) & 1)
+
+
+class BucketSort:
+    """Partition SAM output into genome buckets (BucketSortStage analog)."""
+
+    def __init__(self, anns, temp_dir: str, num_buckets: int = 64,
+                 drop_dups: bool = False, filter_unmap: bool = False):
+        self.anns = anns
+        self.temp_dir = temp_dir
+        os.makedirs(temp_dir, exist_ok=True)
+        self.n = num_buckets
+        self.drop_dups = drop_dups
+        self.filter_unmap = filter_unmap
+        self.name_to_tid = {a.name: i for i, a in enumerate(anns)}
+        self.acc = [0]
+        for a in anns:
+            self.acc.append(self.acc[-1] + a.len)
+        total = self.acc[-1]
+        self.bucket_size = (total + num_buckets - 1) // num_buckets
+        self.files = [open(os.path.join(temp_dir, f"bucket-{i:06d}.bamr"),
+                           "wb") for i in range(num_buckets + 1)]
+        self._write_beds()
+
+    def _write_beds(self) -> None:
+        """Per-bucket interval files (get_intervals,
+        BucketSortStage.cpp:11-41)."""
+        for b in range(self.n):
+            lo = b * self.bucket_size
+            hi = min((b + 1) * self.bucket_size, self.acc[-1])
+            lines = []
+            for i, a in enumerate(self.anns):
+                s = max(lo, self.acc[i])
+                e = min(hi, self.acc[i + 1])
+                if s < e:
+                    lines.append(f"{a.name}\t{s - self.acc[i]}"
+                                 f"\t{e - self.acc[i]}\n")
+            with open(os.path.join(self.temp_dir,
+                                   f"bucket-{b:06d}.bed"), "w") as f:
+                f.writelines(lines)
+
+    def bucket_id(self, tid: int, pos: int) -> int:
+        if tid < 0:
+            return self.n  # unmapped bucket
+        return min((self.acc[tid] + pos) // self.bucket_size, self.n - 1)
+
+    def write_sam_text(self, sam: str) -> None:
+        for line in sam.splitlines():
+            if not line or line.startswith("@"):
+                continue
+            raw = sam_line_to_bam(line, self.name_to_tid)
+            flag = struct.unpack_from("<H", raw, 18)[0]
+            if self.drop_dups and flag & 0x400:
+                continue
+            if self.filter_unmap and flag & 0x4:
+                continue
+            tid, pos = struct.unpack_from("<ii", raw, 4)
+            self.files[self.bucket_id(tid, pos)].write(raw)
+
+    def close(self) -> list[str]:
+        for f in self.files:
+            f.close()
+        return [os.path.join(self.temp_dir, f"bucket-{i:06d}.bamr")
+                for i in range(self.n + 1)]
+
+
+def _load_sorted_bucket(path: str):
+    """Read one bucket file and compute its stable sort order. Memory is
+    bounded by the bucket size (output_size / num_buckets), the same
+    bounded-memory property as the reference's per-bucket mergesort
+    (BamSortStage.cpp:6-36)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    offs: list[int] = []
+    lens: list[int] = []
+    utid: list[int] = []
+    pos1: list[int] = []
+    rev: list[int] = []
+    off = 0
+    n = len(data)
+    while off < n:
+        bs = struct.unpack_from("<i", data, off)[0]
+        offs.append(off)
+        lens.append(4 + bs)
+        tid, pos = struct.unpack_from("<ii", data, off + 4)
+        flag = struct.unpack_from("<H", data, off + 18)[0]
+        utid.append(tid & 0xFFFFFFFF)  # -1 (unmapped) sorts last
+        pos1.append(pos + 1)
+        rev.append((flag >> 4) & 1)
+        off += 4 + bs
+    if offs:
+        # stable lexsort on (tid, pos, strand) — the bam1_lt key without
+        # the 65-bit packed integer (it overflows uint64 for tid=-1)
+        order = np.lexsort((np.asarray(rev, np.int64),
+                            np.asarray(pos1, np.int64),
+                            np.asarray(utid, np.int64)))
+    else:
+        order = []
+    return data, offs, lens, order
+
+
+def merge_sorted_bam(bucket_paths: list[str], out_path: str, anns,
+                     header_text: str = "") -> None:
+    """Phase-2 pipeline: per-bucket stable sort + streamed write, with
+    the next bucket loading/sorting in a background thread while the
+    current one compresses — the BamRead -> BamSort -> BamWrite stage
+    pipeline (src/Bam*Stage.cpp) collapsed to a two-deep prefetch."""
+    w = BamWriter(out_path, anns, header_text)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        nxt = ex.submit(_load_sorted_bucket, bucket_paths[0]) \
+            if bucket_paths else None
+        for i in range(len(bucket_paths)):
+            data, offs, lens, order = nxt.result()
+            nxt = ex.submit(_load_sorted_bucket, bucket_paths[i + 1]) \
+                if i + 1 < len(bucket_paths) else None
+            mv = memoryview(data)
+            for idx in order:
+                w.write_record(mv[offs[idx]:offs[idx] + lens[idx]])
+    w.close()
+
+
+def sam_file_to_sorted_bam(sam_path: str, out_path: str, anns,
+                           temp_dir: str, num_buckets: int = 64) -> None:
+    """Convenience: sort an existing SAM file into a coordinate-sorted BAM."""
+    header_lines = []
+    bs = BucketSort(anns, temp_dir, num_buckets)
+    with open(sam_path) as f:
+        for line in f:
+            if line.startswith("@"):
+                header_lines.append(line)
+            else:
+                bs.write_sam_text(line)
+    buckets = bs.close()
+    hdr = "".join(l for l in header_lines if not l.startswith("@SQ"))
+    merge_sorted_bam(buckets, out_path, anns, hdr)

@@ -41,9 +41,27 @@ Phases:
      (waves are trimmed to their filled slots): against its plain
      version, timed, with its bound; and the time a target row costs it
      (row_cost_ns), the latency that sets its time on the path.
-  6. one JSON line describing the kernels (ms, plain_ms and bound_ms at
-     the path's mean wave; *_b4096 at B=4096), the device line, and as
-     the last line {"ok": true, "device": {...}}.
+  6. the sorted-BAM path: phase 4's paired-end run again with `--sort`
+     (default 512 buckets) and BWA_TPU_EXTEND16 unset, so its waves run
+     the int32 kernel. The int32 kernel must have launched and the int16
+     one not; the BAM must inflate with gzip and end in the BGZF EOF
+     block, carry the index's contigs, have non-decreasing sort keys
+     with unmapped records last, and hold the same multiset of records
+     as phase 4's pe.sam encoded with the port's sam_line_to_bam (so the
+     two kernels' SAM agree over 8192 pairs). Prints the time split:
+     alignment, bucket writes, merge.
+  7. two ranks on the one card: `mem` of phase 3's reads in one process
+     (batches of 1024 reads: -t 4 -K 38656 cuts the FASTQ every 1024 x
+     151 bp), then as two processes of `python -m bwa_flow_tpu_torch mem
+     --nprocs 2 --dist pull` (gloo process group and the pull work queue
+     on free local ports). Both must exit 0 having launched the int32
+     kernel, both parts must hold records, and their union must equal
+     the one-process SAM. This shows the path works, not scale-out
+     speed: both ranks share one card and the host's cores.
+  8. one JSON line describing the kernels (ms, plain_ms and bound_ms at
+     the path's mean wave; *_b4096 at B=4096; launches on each path),
+     the device line, and as the last line {"ok": true, "device":
+     {...}}.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -73,6 +91,8 @@ BATCH = 4096
 N_SUB = 256
 N_PAIRS = 8192
 INSERT_MEAN, INSERT_SD = 400, 40
+RANK_BATCH = 1024            # reads a work-queue batch in phase 7
+RANK_TIMEOUT = 600           # seconds a rank of phase 7 may take
 QMAX, TMAX = 160, 512        # the wave shapes of the main path
 B_EXT = 4096
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM; int32 ops run on the 64
@@ -598,6 +618,28 @@ def timed_launches():
             setattr(extend_cuda, attr, fn)
 
 
+@contextlib.contextmanager
+def timed_calls(owner, attr: str):
+    """While the block runs, sum the host seconds of every call of
+    owner.attr (a module function or a method); yields {"s", "calls"}.
+    The function runs unchanged inside."""
+    fn = getattr(owner, attr)
+    acc = {"s": 0.0, "calls": 0}
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+            acc["calls"] += 1
+    setattr(owner, attr, timed)
+    try:
+        yield acc
+    finally:
+        setattr(owner, attr, fn)
+
+
 def launch_times(log: dict, tag: str) -> dict:
     """Sum the recorded device time of each kernel over a path's run."""
     import torch
@@ -798,6 +840,175 @@ def phase_pe_path(work: Path, device: str) -> dict:
                 peak=peak, path=path["ksw_extend2_i16"])
 
 
+def phase_sort_path(work: Path, device: str) -> dict:
+    """Phase 4's paired-end run with --sort on the int32 kernel; checks
+    the BAM and returns the run's numbers."""
+    import gzip
+    from collections import Counter
+
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.index.io import load_index
+    from bwa_flow_tpu_torch.io import bam
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.pipeline import sort
+
+    ref = str(work / "ref.fa")
+    out = work / "pe.bam"
+    os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
+    extend_cuda.n_launches = 0            # count only the sort path run
+    extend_cuda.n_launches16 = 0
+    t0 = time.perf_counter()
+    with timed_launches() as log, \
+            timed_calls(sort, "merge_sorted_bam") as merge, \
+            timed_calls(sort.BucketSort, "write_sam_text") as writes:
+        assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
+                         "--device", device, "--sort", "--temp-dir",
+                         str(work / "sort_tmp"), "-o", str(out), ref,
+                         str(work / "r1.fq"), str(work / "r2.fq")]) == 0
+    dt = time.perf_counter() - t0
+    path = launch_times(log, "sort")
+    launches = extend_cuda.n_launches
+    launches16 = extend_cuda.n_launches16
+    size = out.stat().st_size
+    print(f"[sort] mem --sort {N_PAIRS} pairs: {dt:.2f} s, "
+          f"{N_PAIRS / dt:.1f} pairs/s (index load included); bucket "
+          f"writes {writes['s']:.3f} s over {writes['calls']} calls, "
+          f"merge_sorted_bam {merge['s']:.3f} s, alignment and the rest "
+          f"{dt - writes['s'] - merge['s']:.3f} s; BAM {size} bytes; "
+          f"ksw_extend2 launches {launches}, ksw_extend2_i16 launches "
+          f"{launches16}")
+    if device == "cuda" and (launches <= 0 or launches16):
+        raise SystemExit(f"the sort path launched ksw_extend2 {launches} "
+                         f"times and ksw_extend2_i16 {launches16} times")
+
+    data = out.read_bytes()
+    if not data.endswith(bam.BGZF_EOF):
+        raise SystemExit("pe.bam does not end in the BGZF EOF block")
+    text, refs, recs = bam.decode_bam_records(gzip.decompress(data))
+    anns = load_index(ref).bns.anns
+    if refs != [(a.name, a.len) for a in anns]:
+        raise SystemExit(f"pe.bam refs {refs} differ from the index's")
+    keys = [sort.sort_key_from_raw(r["raw"]) for r in recs]
+    if any(a > b for a, b in zip(keys, keys[1:])):
+        raise SystemExit("pe.bam: sort keys decrease")
+    tids = [r["tid"] for r in recs]
+    n_unmapped = tids.count(-1)
+    if n_unmapped and -1 in tids[:len(tids) - n_unmapped]:
+        raise SystemExit("pe.bam: an unmapped record before a mapped one")
+    names = {a.name: i for i, a in enumerate(anns)}
+    want = Counter(bam.sam_line_to_bam("\t".join(f), names)
+                   for f in _records(work / "pe.sam"))
+    if Counter(r["raw"] for r in recs) != want:
+        raise SystemExit("pe.bam's records differ from phase 4's pe.sam "
+                         "(int16 kernel) encoded as BAM")
+    print(f"[sort] pe.bam: {len(recs)} records ({n_unmapped} unmapped, "
+          f"last), keys non-decreasing, refs == index, records == phase "
+          f"4's pe.sam as BAM (int32 kernel == int16 kernel over "
+          f"{N_PAIRS} pairs); header {text.count(chr(10))} lines")
+    return dict(launches=launches, path=path["ksw_extend2"])
+
+
+def _free_port() -> int:
+    """A free local TCP port p with p + 137 (the work queue's) free."""
+    import socket
+    for _ in range(100):
+        with socket.socket() as a, socket.socket() as b:
+            a.bind(("127.0.0.1", 0))
+            p = a.getsockname()[1]
+            if p + 137 > 65535:
+                continue
+            try:
+                b.bind(("127.0.0.1", p + 137))
+            except OSError:
+                continue
+            return p
+    raise SystemExit("no free local port pair for phase 7")
+
+
+def _launches_line(err: str) -> int:
+    """The int32 kernel's launches from a rank's `[M::mem] kernel
+    launches` line."""
+    for line in err.splitlines():
+        if line.startswith("[M::mem] kernel launches: ksw_extend2 "):
+            return int(line.split()[4].rstrip(","))
+    raise SystemExit("a rank printed no kernel launch line")
+
+
+def phase_two_ranks(work: Path, device: str) -> dict:
+    """One-process mem of reads.fq in 1024-read batches, then two ranks
+    of `python -m bwa_flow_tpu_torch mem --nprocs 2 --dist pull` on the
+    card; their union must equal the one-process SAM."""
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.ops import extend_cuda
+
+    ref, fq = str(work / "ref.fa"), str(work / "reads.fq")
+    # -K x -t bases a FASTQ batch: exactly RANK_BATCH reads of READ_LEN
+    base = ["-t", "4", "-K", str(RANK_BATCH * READ_LEN // 4),
+            "--batch-reads", str(RANK_BATCH), "--disable-markdup",
+            "--device", device]
+    extend_cuda.n_launches = 0
+    extend_cuda.n_launches16 = 0
+    t0 = time.perf_counter()
+    assert cli.main(["mem"] + base + ["-o", str(work / "one.sam"), ref,
+                                      fq]) == 0
+    t_one = time.perf_counter() - t0
+    one_launches = extend_cuda.n_launches
+    print(f"[ranks] one process: {t_one:.2f} s, {N_READS / t_one:.1f} "
+          f"reads/s, {N_READS // RANK_BATCH} batches, ksw_extend2 "
+          f"launches {one_launches}")
+
+    coord = f"127.0.0.1:{_free_port()}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for k in ("BWA_TPU_NPROCS", "BWA_TPU_PROC_ID", "BWA_TPU_COORDINATOR",
+              "BWA_TPU_RUN_TOKEN", "BWA_TPU_EXTEND16"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bwa_flow_tpu_torch", "mem", "--nprocs", "2",
+         "--proc-id", str(pid), "--coordinator", coord, "--dist", "pull"]
+        + base + ["-o", str(work / "two.sam"), ref, fq],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(work)) for pid in range(2)]
+    errs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            _, errs[i] = p.communicate(
+                timeout=max(1.0, RANK_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"a rank ran past {RANK_TIMEOUT} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    t_two = time.perf_counter() - t0
+    for i, p in enumerate(procs):
+        if p.returncode != 0:
+            for q, e in enumerate(errs):
+                print(f"[ranks] rank {q} stderr:\n{e[-4000:]}",
+                      file=sys.stderr)
+            raise SystemExit(f"rank {i} exited {p.returncode}")
+    parts = [_records(work / f"two.part{i:03d}.sam") for i in range(2)]
+    batches = [len({f[0] for f in part}) / RANK_BATCH for part in parts]
+    launches = [_launches_line(e) for e in errs]
+    print(f"[ranks] two ranks on one card: {t_two:.2f} s wall (process "
+          f"start-up and index load included), {N_READS / t_two:.1f} "
+          f"reads/s; batches per rank {batches}; records per rank "
+          f"{[len(part) for part in parts]}; ksw_extend2 launches per "
+          f"rank {launches}")
+    if not all(parts):
+        raise SystemExit("a rank's part holds no records")
+    if device == "cuda" and min(launches) <= 0:
+        raise SystemExit(f"a rank launched ksw_extend2 {launches} times")
+    one = sorted("\t".join(f) for f in _records(work / "one.sam"))
+    if sorted("\t".join(f) for part in parts for f in part) != one:
+        raise SystemExit("the two ranks' union differs from the "
+                         "one-process SAM")
+    print(f"[ranks] union of two.part000.sam and two.part001.sam == "
+          f"one.sam ({len(one)} records)")
+    return dict(launches=launches, one_launches=one_launches)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -836,12 +1047,27 @@ def main() -> int:
           f"pairs: {time.perf_counter() - t0:.1f} s")
 
     cuda = torch.device("cuda")
-    kres = phase_kernels(genome, cuda)
-    phase_edge_mix(cuda, kres)
-    mres = phase_main_path(WORK, "cuda")
-    pres = phase_pe_path(WORK, "cuda")
-    phase_wave_shape(genome, cuda, kres, {"ksw_extend2": mres["path"],
-                                          "ksw_extend2_i16": pres["path"]})
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+    kres = timed_phase("2 kernels", phase_kernels, genome, cuda)
+    timed_phase("2 edge mix", phase_edge_mix, cuda, kres)
+    mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
+    pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
+    timed_phase("5 mean waves", phase_wave_shape, genome, cuda, kres,
+                {"ksw_extend2": mres["path"],
+                 "ksw_extend2_i16": pres["path"]})
+    sres = timed_phase("6 sorted BAM", phase_sort_path, WORK, "cuda")
+    rres = timed_phase("7 two ranks", phase_two_ranks, WORK, "cuda")
+    launches_by_path = {
+        "ksw_extend2": {"single_end": mres["launches"],
+                        "sort": sres["launches"],
+                        "one_process": rres["one_launches"],
+                        "ranks": rres["launches"]},
+        "ksw_extend2_i16": {"paired_end": pres["launches"]}}
 
     # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
     # *_b4096 at the widest wave
@@ -861,10 +1087,12 @@ def main() -> int:
             "bound_by": k["path_bound_by"], "library_ms": None,
             "B": k["path_B"], "cells": k["path_cells"],
             "bytes": k["path_bytes"],
+            "launches_by_path": launches_by_path[name],
             "path_device_ms": res["path"]["device_ms"],
             "row_ns": k["row_ns"], "other_kernel_ms": k["path_other_ms"],
             "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
             "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
+    kernels[0]["sort_path_device_ms"] = sres["path"]["device_ms"]
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

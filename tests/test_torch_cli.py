@@ -2,8 +2,9 @@
 `python -m bwa_flow_tpu` on the fixture of tests/test_cli.py: index files
 byte-equal, single-end and paired-end mem SAM equal apart from @PG
 (paired-end also with the int16 extension core and with -I),
---no-device equal too."""
+--no-device equal too; `--sort` BAMs equal after decompression."""
 
+import gzip
 import os
 import shutil
 import subprocess
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.io import bam
 from bwa_flow_tpu_torch.ops import extend_torch
+from bwa_flow_tpu_torch.pipeline import sort
 
 # small tensors: one intra-op thread per test process (xdist runs six)
 torch.set_num_threads(1)
@@ -63,11 +66,17 @@ def workdir(tmp_path_factory):
                            capture_output=True, text=True, cwd=str(jd),
                            env=env, timeout=600)
         assert r.returncode == 0, r.stderr[-2000:]
-    # both paired-end runs in one process: pe.sam, and pe_I.sam with -I
+    # both paired-end runs in one process: pe.sam, and pe_I.sam with -I;
+    # then sorted BAMs of both inputs on the host golden path
     pe_runs = ("from bwa_flow_tpu import cli\n"
                "pe = ['ref.fa', 'r1.fq', 'r2.fq']\n"
                "assert cli.main(['mem', '-o', 'pe.sam'] + pe) == 0\n"
                "assert cli.main(['mem', '-I', '300,30', '-o', 'pe_I.sam']"
+               " + pe) == 0\n"
+               "srt = ['mem', '--no-device', '--sort', '--num-buckets', '8']\n"
+               "assert cli.main(srt + ['--temp-dir', 'td_se', '-o', 'se.bam',"
+               " 'ref.fa', 'se.fq']) == 0\n"
+               "assert cli.main(srt + ['--temp-dir', 'td_pe', '-o', 'pe.bam']"
                " + pe) == 0\n")
     r = subprocess.run([sys.executable, "-c", pe_runs], capture_output=True,
                        text=True, cwd=str(jd), env=env, timeout=600)
@@ -138,10 +147,84 @@ def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
     assert bool(calls) == (mode == "device_cpu_int16")
 
 
-@pytest.mark.parametrize("extra", [["--sort"], ["--nprocs", "2"],
-                                   ["--coordinator", "host:1"]])
+@pytest.mark.parametrize("extra", [["--local-devices", "2"],
+                                   ["--validate-every", "1"],
+                                   ["--ext-mode", "waves"]])
 def test_later_slice_options_exit_nonzero(workdir, extra):
     with pytest.raises(SystemExit) as e:
         cli.main(["mem", "--device", "cpu"] + extra
                  + [str(workdir / "ref.fa"), str(workdir / "se.fq")])
+    assert e.value.code not in (0, None)
+
+
+def _bam_parts(path):
+    """(header text without @PG lines, refs, raw records in order) of a
+    BAM, after checking that it ends in the BGZF EOF block."""
+    data = Path(path).read_bytes()
+    assert data.endswith(bam.BGZF_EOF)
+    text, refs, recs = bam.decode_bam_records(gzip.decompress(data))
+    text = [l for l in text.splitlines() if not l.startswith("@PG")]
+    return text, refs, [r["raw"] for r in recs]
+
+
+@pytest.mark.parametrize("inputs", ["se", "pe"])
+def test_sorted_bam_equals_jax_package(workdir, inputs):
+    """`--sort` on the device path (plain torch on the CPU) against the
+    JAX package's `--no-device --sort`, after decompression, @PG aside."""
+    fq = ["se.fq"] if inputs == "se" else ["r1.fq", "r2.fq"]
+    out = workdir / f"{inputs}_sorted.bam"
+    assert cli.main(["mem", "--device", "cpu", "--sort", "--num-buckets",
+                     "8", "--temp-dir", str(workdir / f"td_{inputs}"),
+                     "-o", str(out), str(workdir / "ref.fa")]
+                    + [str(workdir / f) for f in fq]) == 0
+    mine = _bam_parts(out)
+    assert mine == _bam_parts(workdir / "jax" / f"{inputs}.bam")
+    assert mine[1] == [("chrA", 8000)]
+    assert len(mine[2]) == 12 * len(fq)
+    keys = [sort.sort_key_from_raw(r) for r in mine[2]]
+    assert keys == sorted(keys)
+
+
+@pytest.fixture(scope="module")
+def dupdir(tmp_path_factory):
+    """The fixture of tests/test_bam_sort.py::test_cli_sorted_bam: six
+    reads and a duplicate of the first."""
+    d = tmp_path_factory.mktemp("torch_dup")
+    rng = np.random.default_rng(0xB0)
+    g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 6000)].tobytes()
+    (d / "ref.fa").write_text(
+        ">c1\n" + "\n".join(g.decode()[i:i + 70]
+                            for i in range(0, 6000, 70)) + "\n")
+    with open(d / "se.fq", "w") as f:
+        for i in range(6):
+            p = 500 * i
+            f.write(f"@s{i}\n{g[p:p+101].decode()}\n+\n{'I'*101}\n")
+        f.write(f"@dup0\n{g[0:101].decode()}\n+\n{'I'*101}\n")
+    assert cli.main(["index", str(d / "ref.fa")]) == 0
+    return d
+
+
+@pytest.mark.parametrize("remove", [False, True], ids=["mark", "remove"])
+def test_sort_marks_or_removes_duplicates(dupdir, remove):
+    out = dupdir / f"out_{remove}.bam"
+    assert cli.main(["mem", "--device", "cpu", "--sort", "--num-buckets",
+                     "4", "--temp-dir", str(dupdir / f"td_{remove}"),
+                     "-o", str(out)]
+                    + (["--remove-duplicates"] if remove else [])
+                    + [str(dupdir / "ref.fa"), str(dupdir / "se.fq")]) == 0
+    _, _, recs = bam.decode_bam_records(gzip.decompress(out.read_bytes()))
+    dups = [r["qname"] for r in recs if r["flag"] & 0x400]
+    if remove:
+        assert len(recs) == 6 and not dups
+        assert "dup0" not in {r["qname"] for r in recs}
+    else:
+        assert len(recs) == 7 and dups == ["dup0"]
+    keys = [sort.sort_key_from_raw(r["raw"]) for r in recs]
+    assert keys == sorted(keys)
+
+
+def test_sort_without_output_exits_nonzero(workdir):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["mem", "--device", "cpu", "--sort",
+                  str(workdir / "ref.fa"), str(workdir / "se.fq")])
     assert e.value.code not in (0, None)
