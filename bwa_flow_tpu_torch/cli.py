@@ -3,9 +3,18 @@
 Port of bwa_flow_tpu/cli.py for `mem` on single-end and paired-end
 reads (two FASTQs, or one interleaved with -p), with SAM or a
 coordinate-sorted BAM (--sort) as output, in one process or in several
-(--nprocs/--proc-id/--coordinator, --dist pull|stride). Options of later
-slices (--local-devices, --validate-every, --device-timeout, --ext-mode)
-exit with a message.
+(--nprocs/--proc-id/--coordinator, --dist pull|stride), on one device or
+on several from one process (--local-devices N). Options of later slices
+(--validate-every, --device-timeout, --ext-mode) exit with a message.
+
+--local-devices N shards every batch over N devices of this process
+(one index replica, seed program and wave streams on each; the SAM is
+the one-device SAM). 0 or 1 means one device. With --device cuda it
+takes min(N, torch.cuda.device_count()) distinct cards from the first
+one on, as jax.local_devices()[:N] does, so on a one-card host the run
+is the one-device run; with --nprocs > 1, rank pid's cards start at
+card pid % device_count. With --device cpu, N > 1 gives N shards on the
+CPU.
 
 Mirrors the reference's option pipeline — gflags mirrored into a synthetic
 argv re-parsed by bwa's getopt (src/preprocess.cpp:70-389)
@@ -35,8 +44,7 @@ from .utils.opts import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
                          MemOpt)
 
 _LATER = "is not ported to bwa_flow_tpu_torch yet"
-_LATER_OPTS = ("--local-devices", "--validate-every", "--device-timeout",
-               "--ext-mode")
+_LATER_OPTS = ("--validate-every", "--device-timeout", "--ext-mode")
 
 
 def _mem_parser() -> argparse.ArgumentParser:
@@ -109,6 +117,11 @@ def _mem_parser() -> argparse.ArgumentParser:
       help="multi-process batch assignment: pull = dynamic work queue on "
       "rank 0 (the reference's MPI master loop, self-load-balancing); "
       "stride = static every-Nth-batch")
+    a("--local-devices", type=int, dest="local_devices", default=None,
+      metavar="N", help="shard every batch over N devices of this "
+      "process (0 or 1: one device); cuda: min(N, device_count) cards "
+      "from the first (with --nprocs, from card pid %% device_count); "
+      "cpu: N shards")
     # options of later slices: accepted, then refused with a message
     for opt in _LATER_OPTS:
         a(opt, default=None)
@@ -279,9 +292,26 @@ def main_mem(argv: list[str]) -> int:
         dist.shutdown()
 
 
-def _mem(args, argv, opt, pid: int, nprocs: int) -> int:
+def local_devices(device, n: int | None) -> list[torch.device] | None:
+    """The devices of --local-devices n on top of `device`: None for one
+    device (n None, 0 or 1); n CPU shards on the CPU; on CUDA min(n,
+    device_count) distinct cards from `device`'s card on (wrapping)."""
+    if not n or n <= 1:
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [dev] * n
+    count = torch.cuda.device_count()
+    first = dev.index or 0
+    return [torch.device("cuda", (first + i) % count)
+            for i in range(min(n, count))]
+
+
+def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
     """`mem` as rank `pid` of `nprocs` (the process group, if any, is
-    formed and destroyed by the caller)."""
+    formed and destroyed by the caller). `devices`, a list of torch
+    devices (it may repeat one), shards the device path over them in
+    place of --device/--local-devices."""
     device = args.device
     if nprocs > 1:
         # per-rank output (the reference's <host>-<pid> dirs,
@@ -295,6 +325,8 @@ def _mem(args, argv, opt, pid: int, nprocs: int) -> int:
             # uses its own local chips
             resolve_device(device)
             device = f"cuda:{pid % torch.cuda.device_count()}"
+    if devices is None and not args.no_device:
+        devices = local_devices(device, args.local_devices)
     t0 = time.time()
     fm = load_index(args.ref, ignore_alt=args.ignore_alt)
     print(f"[M::mem] loaded index {args.ref} in {time.time()-t0:.1f}s",
@@ -417,7 +449,8 @@ def _mem(args, argv, opt, pid: int, nprocs: int) -> int:
             pipe = AlignPipeline(opt, fm, paired=paired,
                                  n_workers=max(0, args.n_threads - 1),
                                  rg_id=rg, pes0=pes0,
-                                 mp_context=args.mp_context, device=device)
+                                 mp_context=args.mp_context, device=device,
+                                 devices=devices)
             try:
                 pipe.run(batches(), emit)
             finally:
@@ -429,6 +462,13 @@ def _mem(args, argv, opt, pid: int, nprocs: int) -> int:
             print(f"[M::mem] kernel launches: ksw_extend2 "
                   f"{extend_cuda.n_launches - n0[0]}, ksw_extend2_i16 "
                   f"{extend_cuda.n_launches16 - n0[1]}", file=sys.stderr)
+            shards = pipe.ba.stats["shards"]
+            for i, sh in enumerate(shards if len(shards) > 1 else ()):
+                print(f"[M::mem] shard {i} on {sh['device']}: seed "
+                      f"{sh['seed_s']:.2f} s, {sh['waves']} waves, "
+                      f"{sh['ext_tasks_device']} device tasks, kernel "
+                      f"launches {sh['launches']} + {sh['launches16']} "
+                      f"(int16)", file=sys.stderr)
         if bucket is not None:
             from .pipeline import sort
             sort.merge_sorted_bam(bucket.close(), args.output,

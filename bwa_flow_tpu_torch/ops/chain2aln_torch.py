@@ -1,15 +1,24 @@
-"""Device coupled seed-extension waves from task descriptors.
+"""Device coupled seed-extension tasks.
 
-Port of bwa_flow_tpu/ops/chain2aln_jax.py (the descriptor path). One task
-is one seed of one chain: left extension (reversed query prefix vs
-reversed reference window), then the right extension seeded with the
-left score (mem_chain2aln, bwa/bwamem.c:716-779). The query and
-reference windows are assembled on the device from the resident read
-batch and the packed reference, and each side runs one banded
+Port of bwa_flow_tpu/ops/chain2aln_jax.py. One task is one seed of one
+chain: left extension (reversed query prefix vs reversed reference
+window), then the right extension seeded with the left score
+(mem_chain2aln, bwa/bwamem.c:716-779). Every extension runs a banded
 ksw_extend2 — a CUDA kernel on the card, its plain PyTorch version on
-the CPU; the int32 or the int16 one as fits_i16 selects, as in the JAX
-package. The host applies bwa's local/to-end decision, the band-doubling
-retries and the coordinates (pipeline/batch.py).
+the CPU.
+
+Two forms, as in the JAX package:
+
+  - the descriptor waves of the pipeline (seed_extend_desc_batch,
+    DescTaskBuffer): the query and reference windows are assembled on
+    the device from the resident read batch and the packed reference;
+    each side runs ONE try, the int32 or the int16 core as fits_i16
+    selects, and the host applies bwa's local/to-end decision, the
+    band-doubling retries and the coordinates (pipeline/batch.py);
+  - the coupled two-try batch over materialized windows
+    (seed_extend_batch, SeedExtendTaskBuffer; parallel/mesh.py and
+    entry.py call it): both sides with bwa's band doubling on the
+    device, four int32 extension calls.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import extend_cuda, extend_torch
 
 I32 = torch.int32
@@ -34,6 +44,129 @@ def _extend_impl(q: torch.Tensor, use16: bool = False):
         return (extend_torch.extend_core16 if use16
                 else extend_torch.extend_core)
     raise ValueError(f"unsupported device {q.device}")
+
+
+def _two_tries(qmax, tmax, q, ql, t, tl, h0, mat, o_del, e_del, o_ins,
+               e_ins, w0: int, end_bonus, zdrop, prev0):
+    """bwa band doubling: try w, retry 2w where the score moved from its
+    entry value (`prev0`: -1 for the left extension, the incoming score
+    for the right) and max_off >= w/2 + w/4 (bwamem.c:737-744). Both
+    tries run on every lane, as in the JAX package. Returns the selected
+    6-tuple and the band used, int32[B]."""
+    ext = _extend_impl(q)
+    r0 = ext(qmax, tmax, q, ql, t, tl, h0, mat, o_del, e_del, o_ins, e_ins,
+             w0, end_bonus, zdrop)
+    need = (r0[0] != prev0) & (r0[5] >= ((w0 >> 1) + (w0 >> 2)))
+    r1 = ext(qmax, tmax, q, ql, t, tl, h0, mat, o_del, e_del, o_ins, e_ins,
+             w0 * 2, end_bonus, zdrop)
+    out = tuple(torch.where(need, b, a) for a, b in zip(r0, r1))
+    aw = torch.where(need, w0 * 2, w0).to(I32)
+    return out, aw
+
+
+def seed_extend_batch(qmax: int, tmax: int, ql_q, ql_n, tl_t, tl_n,
+                      qr_q, qr_n, tr_t, tr_n, h0, mat, o_del, e_del, o_ins,
+                      e_ins, w, pen_clip5, pen_clip3, zdrop
+                      ) -> tuple[torch.Tensor, ...]:
+    """Batched coupled seed extension from materialized windows (the
+    counterpart of chain2aln_jax.seed_extend_batch and its _coupled).
+
+    ql_*/tl_*: reversed left query/target (int32 [B, qmax]/[B, tmax] and
+    int32[B] lengths; length 0 = no left extension); qr_*/tr_*: the
+    right query/target; h0: seed_len * a; mat int32[5, 5]; all
+    contiguous on one device. The scalars are ints or 0-d tensors.
+    Returns 12 int32[B] tensors
+      (lscore, lqle, ltle, lgtle, lgscore, aw0,
+       rscore, rqle, rtle, rgtle, rgscore, aw1)
+    where lanes without a left extension report lscore = h0, aw0 = w,
+    and lanes without a right one rscore = lscore, aw1 = w. Each side
+    runs the int32 core at w and at 2w: four launches of the int32
+    kernel on a card."""
+    w = extend_torch._as_int(w)
+    lres, aw0 = _two_tries(qmax, tmax, ql_q, ql_n, tl_t, tl_n, h0, mat,
+                           o_del, e_del, o_ins, e_ins, w, pen_clip5, zdrop,
+                           torch.full_like(h0, -1))
+    has_left = ql_n > 0
+    # score entering the right extension: the left score, or the seed's
+    lscore = torch.where(has_left, lres[0], h0).contiguous()
+    aw0 = torch.where(has_left, aw0, w)
+    rres, aw1 = _two_tries(qmax, tmax, qr_q, qr_n, tr_t, tr_n, lscore, mat,
+                           o_del, e_del, o_ins, e_ins, w, pen_clip3, zdrop,
+                           lscore)
+    has_right = qr_n > 0
+    rscore = torch.where(has_right, rres[0], lscore)
+    aw1 = torch.where(has_right, aw1, w)
+    return (lscore, lres[1], lres[2], lres[3], lres[4], aw0,
+            rscore, rres[1], rres[2], rres[3], rres[4], aw1)
+
+
+class SeedExtendTaskBuffer:
+    """Fixed-shape host packing buffer for coupled seed-extension tasks
+    (the SWTask analog, the reference's src/fpga/SWTask.cpp); run() sends
+    the whole buffer through seed_extend_batch."""
+
+    def __init__(self, cap: int, qmax: int, tmax: int):
+        self.cap, self.qmax, self.tmax = cap, qmax, tmax
+        self.ql_q = np.zeros((cap, qmax), np.int32)
+        self.ql_n = np.zeros(cap, np.int32)
+        self.tl_t = np.zeros((cap, tmax), np.int32)
+        self.tl_n = np.zeros(cap, np.int32)
+        self.qr_q = np.zeros((cap, qmax), np.int32)
+        self.qr_n = np.zeros(cap, np.int32)
+        self.tr_t = np.zeros((cap, tmax), np.int32)
+        self.tr_n = np.zeros(cap, np.int32)
+        self.h0 = np.ones(cap, np.int32)
+        self.n = 0
+
+    def reset(self):
+        """Empty the buffer: lengths 0, h0 1 (the sequences stay, masked
+        by the lengths)."""
+        self.n = 0
+        self.ql_n[:] = 0
+        self.tl_n[:] = 0
+        self.qr_n[:] = 0
+        self.tr_n[:] = 0
+        self.h0[:] = 1
+
+    def add(self, q_left: np.ndarray, t_left: np.ndarray,
+            q_right: np.ndarray, t_right: np.ndarray, h0: int) -> int:
+        """Sequences already direction-ordered (left ones reversed).
+        Returns the task slot, or -1 when a piece exceeds the buffer's
+        shape or the buffer is full (the caller runs the task on the
+        host)."""
+        if (len(q_left) > self.qmax or len(q_right) > self.qmax
+                or len(t_left) > self.tmax or len(t_right) > self.tmax
+                or self.n >= self.cap):
+            return -1
+        i = self.n
+        self.ql_q[i, :len(q_left)] = q_left
+        self.ql_n[i] = len(q_left)
+        self.tl_t[i, :len(t_left)] = t_left
+        self.tl_n[i] = len(t_left)
+        self.qr_q[i, :len(q_right)] = q_right
+        self.qr_n[i] = len(q_right)
+        self.tr_t[i, :len(t_right)] = t_right
+        self.tr_n[i] = len(t_right)
+        self.h0[i] = h0
+        self.n += 1
+        return i
+
+    def run(self, opt, device=None) -> tuple[np.ndarray, ...]:
+        """Run every slot (all `cap`, as the JAX buffer does) on `device`
+        (cuda unless the caller asks for the CPU); returns the 12 outputs
+        of seed_extend_batch as int32[cap] host arrays."""
+        dev = resolve_device(device)
+
+        def put(a):
+            return torch.as_tensor(a, device=dev)
+        out = seed_extend_batch(
+            self.qmax, self.tmax, put(self.ql_q), put(self.ql_n),
+            put(self.tl_t), put(self.tl_n), put(self.qr_q), put(self.qr_n),
+            put(self.tr_t), put(self.tr_n), put(self.h0),
+            put(np.ascontiguousarray(opt.mat[:5, :5], dtype=np.int32)),
+            opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
+            opt.pen_clip5, opt.pen_clip3, opt.zdrop)
+        return tuple(o.cpu().numpy() for o in out)
 
 
 def _pac_window_batch(dfm, start: torch.Tensor, step_down: bool, N: int

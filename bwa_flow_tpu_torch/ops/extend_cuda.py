@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -30,11 +31,13 @@ from .. import _build
 from .extend_torch import _as_int
 
 # launches of each kernel (plain counts; chip_smoke.py resets and reads
-# them)
+# them). Shard threads may launch (parallel/mesh.py), so the counts and
+# the first load change under _LOCK.
 n_launches = 0
 n_launches16 = 0
 
 _FNS: dict = {}
+_LOCK = threading.Lock()
 
 
 def fits_i16(qmax: int, h0max: int, max_mat: int, end_bonus: int) -> bool:
@@ -60,16 +63,17 @@ def i16_exact(qmax: int, h0max: int, max_mat: int, end_bonus: int) -> bool:
 def _fn(name: str, entry: str):
     """ctypes function `entry` of csrc/<name>.cu: 3 ints, 7 pointers, 6
     ints, then the out pointer and the stream."""
-    if name not in _FNS:
-        lib = _build.load(name)
-        fn = getattr(lib, entry)
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        lib.ksw_error_string.argtypes = [ctypes.c_int]
-        lib.ksw_error_string.restype = ctypes.c_char_p
-        _FNS[name] = (fn, lib.ksw_error_string)
-    return _FNS[name]
+    with _LOCK:
+        if name not in _FNS:
+            lib = _build.load(name)
+            fn = getattr(lib, entry)
+            fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 7
+                           + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+            fn.restype = ctypes.c_int
+            lib.ksw_error_string.argtypes = [ctypes.c_int]
+            lib.ksw_error_string.restype = ctypes.c_char_p
+            _FNS[name] = (fn, lib.ksw_error_string)
+        return _FNS[name]
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
@@ -106,12 +110,17 @@ def _checked(who: str, qmax: int, tmax: int, q, qlen, t, tlen, h0, mat, w):
 
 def _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
             o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out) -> None:
+    """Call the C launcher with the tensors' card current: the runtime
+    launches on the current device, so a call from a thread whose
+    current card is another would launch there with this card's
+    stream."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = fn(B, qmax, tmax, q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
-            tlen.data_ptr(), h0.data_ptr(), w.data_ptr(), mat.data_ptr(),
-            _as_int(o_del), _as_int(e_del), _as_int(o_ins), _as_int(e_ins),
-            _as_int(end_bonus), _as_int(zdrop), out.data_ptr(), stream)
+        rc = fn(B, qmax, tmax, q.data_ptr(), t.data_ptr(), qlen.data_ptr(),
+                tlen.data_ptr(), h0.data_ptr(), w.data_ptr(),
+                mat.data_ptr(), _as_int(o_del), _as_int(e_del),
+                _as_int(o_ins), _as_int(e_ins), _as_int(end_bonus),
+                _as_int(zdrop), out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ksw_extend2 launch failed: "
                            f"{err(rc).decode()} ({rc})")
@@ -135,7 +144,8 @@ def extend_core_cuda(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
     fn, err = _fn("ksw_extend", "ksw_extend2_launch")
     _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
             o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out)
-    n_launches += 1
+    with _LOCK:
+        n_launches += 1
     return tuple(out[k] for k in range(6))
 
 
@@ -156,5 +166,6 @@ def extend_core_cuda16(qmax: int, tmax: int, q, qlen, t, tlen, h0, mat,
     fn, err = _fn("ksw_extend16", "ksw_extend2_i16_launch")
     _launch(fn, err, dev, B, qmax, tmax, q, qlen, t, tlen, h0, w, mat,
             o_del, e_del, o_ins, e_ins, end_bonus, zdrop, out)
-    n_launches16 += 1
+    with _LOCK:
+        n_launches16 += 1
     return tuple(out[k] for k in range(6))

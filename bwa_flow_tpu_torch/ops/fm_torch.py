@@ -113,6 +113,16 @@ class DeviceFM:
             pac_words=t("pac_words", np.int32), l_pac=int(leaves["l_pac"]),
             sa_dense=None if dense is None else t("sa_dense", np.int32))
 
+    def replica(self, device) -> "DeviceFM":
+        """A copy of the index in memory of its own on `device` (also
+        when it is this index's device): the per-device replica of a
+        sharded run, which the JAX package makes with device_put."""
+        device = torch.device(device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device, copy=True)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
     def narrow(self) -> "DeviceFM":
         """int32-coordinate view of a sub-2^31 index (the FM scalars the
         occ/extend chain touches become int32, so derived coordinates and

@@ -77,6 +77,19 @@ class IntvBatch:
                          self.en[a:b])
 
     @classmethod
+    def concat(cls, parts: list["IntvBatch"]) -> "IntvBatch":
+        """The batches' reads one after another (the inverse of
+        slice_reads over consecutive ranges)."""
+        if len(parts) == 1:
+            return parts[0]
+        offs = [parts[0].iv_off]
+        for p in parts[1:]:
+            offs.append(p.iv_off[1:] + offs[-1][-1])
+        return cls(np.concatenate(offs),
+                   *(np.concatenate([getattr(p, f) for p in parts])
+                     for f in ("x0", "x1", "sv", "st", "en")))
+
+    @classmethod
     def from_lists(cls, all_intvs: list[list[Intv]]) -> "IntvBatch":
         n = len(all_intvs)
         iv_off = np.zeros(n + 1, np.int64)

@@ -1,6 +1,6 @@
 """Batched device aligner — the device compute path of the pipeline.
 
-Port of bwa_flow_tpu/pipeline/batch.py (one device). Per batch:
+Port of bwa_flow_tpu/pipeline/batch.py (its pure-Python route). Per batch:
 
   1. device SMEM seeding with fused SA resolution (ops/smem_torch.py)
   2. device SA probes for what the seed program did not resolve
@@ -15,8 +15,12 @@ Port of bwa_flow_tpu/pipeline/batch.py (one device). Per batch:
      (interleaved mates) estimate the insert size, rescue mates and
      pair (ops/pe.py) instead.
 
+With several devices (`devices`), steps 1, 2 and 4 run per shard of the
+batch on each device's index replica (parallel/mesh.py); the host
+stages see the whole batch in read order, with global read ids.
+
 Tasks too large for the device shapes run on the host scalar kernel
-inline. A device error propagates and fails the run.
+inline. A device error, on any shard, propagates and fails the run.
 """
 
 from __future__ import annotations
@@ -35,10 +39,12 @@ from ..ops import chain as chainops
 from ..ops import fm as fmops
 from ..ops import pe as peops
 from ..ops import region as regionops
-from ..ops import smem_torch
+from ..ops import extend_cuda, smem_torch
 from ..ops.chain2aln_torch import DescTaskBuffer
 from ..ops.fm_torch import DeviceFM, sa_batch
 from ..ops.probe_layout import sa_probe_layout
+from ..ops.smem import IntvBatch
+from ..parallel.mesh import replicate_fm, run_shards
 from ..utils.opts import MEM_F_PRIMARY5, MemOpt
 
 SA_CHUNK = 65536   # SA probes per device LF-walk call
@@ -77,35 +83,57 @@ def se_sam(opt: MemOpt, fm: FMIndex, read: Read, regs, read_id: int,
 
 
 class BatchAligner:
-    """Device batch aligner on one torch device (``cuda`` by default).
+    """Device batch aligner on one torch device (``cuda`` by default), or
+    on several with `devices`.
 
     `wave_cap` bounds tasks per device extension call; `smem_L` is the
     padded read length of the seeding machine (longer reads are seeded
-    on the host)."""
+    on the host).
+
+    `devices` (a list of torch devices, one shard each; it may name a
+    device more than once) splits every batch into contiguous shards,
+    as the JAX package's n_local_devices does (batch.py:73-85,
+    309-325): the index is replicated on each device, and each shard
+    seeds its reads on its own device (one thread a shard), keeps them
+    resident there, and runs the extension waves of its reads there,
+    two wave streams a shard (the JAX package's _extend_waves_sharded).
+    SA probe chunks go round-robin over the replicas. None, or one
+    device, is the one-device path: one shard."""
 
     def __init__(self, opt: MemOpt, fm: FMIndex, smem_L: int = 160,
                  wave_cap: int = 4096, qmax: int = 160, tmax: int = 512,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, devices=None):
+        devs = [resolve_device(d) for d in (devices or [device])]
+        self.device = devs[0]
         self.opt = opt
         self.fm = fm
         self.dfm = DeviceFM.from_host(fm, self.device)
         self.smem_L = smem_L
-        # two buffers: wave streams ping-pong
-        self.bufs = [DescTaskBuffer(wave_cap, qmax, tmax),
-                     DescTaskBuffer(wave_cap, qmax, tmax)]
-        self.buf = self.bufs[0]
-        self._dev_reads = None
-        self._dev_reads_n = 0
+        self.qmax, self.tmax = qmax, tmax
+        # one shard a device: its index replica and its two wave buffers
+        # (the streams ping-pong)
+        self.shards = [
+            dict(device=d, dfm=x, bufs=[DescTaskBuffer(wave_cap, qmax, tmax),
+                                        DescTaskBuffer(wave_cap, qmax, tmax)])
+            for d, x in zip(devs, [self.dfm] + replicate_fm(self.dfm,
+                                                            devs[1:]))]
+        # (lo, hi, padded reads on the shard's device) of each shard of
+        # the batch seeded last: the device-resident reads of its waves
+        self._dev_shards = None
         self._stats_lock = threading.Lock()
         self.stats = {"reads": 0, "sa_host_redo": 0,
                       "ext_tasks_device": 0, "ext_tasks_host": 0,
                       "waves": 0, "band_retries": 0,
-                      "seed_batches": 0, "seed_s": 0.0}
+                      "seed_batches": 0, "seed_s": 0.0,
+                      "shards": [dict(device=str(d), seed_s=0.0, waves=0,
+                                      ext_tasks_device=0, launches=0,
+                                      launches16=0) for d in devs]}
 
-    def _stat(self, name: str, delta=1) -> None:
+    def _stat(self, name: str, delta=1, shard: int | None = None) -> None:
+        """Add to a counter of the batch aligner, or of one shard."""
         with self._stats_lock:
-            self.stats[name] = self.stats.get(name, 0) + delta
+            st = self.stats if shard is None else self.stats["shards"][shard]
+            st[name] = st.get(name, 0) + delta
 
     # ------------------------------------------------------------------
     def resolve_sa_flat(self, all_intvs, seed_handle: dict | None = None):
@@ -113,7 +141,9 @@ class BatchAligner:
         returns (vals int64[NO], off int64[n+1], owners) in
         sa_probe_layout order. Reads whose values the seed program
         resolved (fused SA) need no probe; the rest go through batched
-        device LF walks, and walk overflows through the host bwt_sa."""
+        device LF walks, chunks round-robin over the index replicas (any
+        replica serves any probe), and walk overflows through the host
+        bwt_sa."""
         rows, offs, owners = sa_probe_layout(self.opt, all_intvs,
                                              build_owners=True)
         vals_all = np.empty(len(rows), dtype=np.int64)
@@ -137,9 +167,11 @@ class BatchAligner:
             rows = rows[need]
         # sub-2^31 genomes walk the LF chain in int32 on a narrow view
         narrow = self.fm.seq_len < 2**31 and not smem_torch.FORCE_WIDE
-        dfm_sa = self.dfm.narrow() if narrow else self.dfm
+        dfm_sas = [s["dfm"].narrow() if narrow else s["dfm"]
+                   for s in self.shards]
         pdt = np.int32 if narrow else np.int64
-        for off in range(0, len(rows), SA_CHUNK):
+        for ci, off in enumerate(range(0, len(rows), SA_CHUNK)):
+            dfm_sa = dfm_sas[ci % len(dfm_sas)]
             chunk = rows[off:off + SA_CHUNK]
             width = 4096
             while width < len(chunk):
@@ -147,7 +179,7 @@ class BatchAligner:
             pad = np.zeros(width, dtype=pdt)
             pad[:len(chunk)] = chunk
             sa_t, ovf_t = sa_batch(dfm_sa, torch.as_tensor(
-                pad, device=self.device), 256, int(self.fm.sa_intv))
+                pad, device=dfm_sa.device), 256, int(self.fm.sa_intv))
             vals = sa_t[:len(chunk)].cpu().numpy().copy()
             ovf = ovf_t[:len(chunk)].cpu().numpy()
             for j in np.nonzero(ovf)[0]:
@@ -161,32 +193,57 @@ class BatchAligner:
 
     # ------------------------------------------------------------------
     def seeds_dispatch(self, seqs: list[np.ndarray]) -> dict:
-        """Stage 1 (device SMEM seeding): uploads the padded batch and
-        runs the seed program on it; the handle feeds seeds_collect."""
-        q, qlen = smem_torch.pad_reads(seqs, self.smem_L)
-        q_dev = torch.as_tensor(q, device=self.device)
-        qlen_dev = torch.as_tensor(qlen, device=self.device)
+        """Stage 1 (device SMEM seeding): cuts the batch into contiguous
+        shards of ceil(n / devices) reads (fewer shards than devices when
+        the batch is small), uploads each padded shard to its device and
+        runs the seed program on it, one thread a shard; the handle
+        feeds seeds_collect."""
+        n = len(seqs)
+        per = -(-max(n, 1) // len(self.shards))
+        bounds = [(i, min(i + per, n)) for i in range(0, n, per)] or [(0, 0)]
+
+        def dispatch(k):
+            lo, hi = bounds[k]
+            sh = self.shards[k]
+            q, qlen = smem_torch.pad_reads(seqs[lo:hi], self.smem_L)
+            q_dev = torch.as_tensor(q, device=sh["device"])
+            qlen_dev = torch.as_tensor(qlen, device=sh["device"])
+            t0 = time.perf_counter()
+            sub = smem_torch.seed_dispatch(self.opt, self.fm, sh["dfm"],
+                                           seqs[lo:hi], L=self.smem_L,
+                                           padded=(q_dev, qlen_dev))
+            self._stat("seed_s", time.perf_counter() - t0, shard=k)
+            return q_dev, sub
+
         t0 = time.perf_counter()
-        sub = smem_torch.seed_dispatch(self.opt, self.fm, self.dfm, seqs,
-                                       L=self.smem_L,
-                                       padded=(q_dev, qlen_dev))
+        parts = run_shards(dispatch, len(bounds))
         self._stat("seed_s", time.perf_counter() - t0)
-        return dict(n_reads=len(seqs), q_dev=q_dev, sub=sub)
+        return dict(n_reads=n, bounds=bounds, parts=parts)
 
     def seeds_collect(self, h: dict):
-        """Finish a seeds_dispatch as an array-native IntvBatch; pins the
-        handle's padded read batch as the device-resident reads of the
-        following extension waves."""
+        """Finish a seeds_dispatch (each shard in its thread) as one
+        array-native IntvBatch in read order; pins the shards' padded
+        reads as the device-resident reads of the following extension
+        waves."""
         self._stat("reads", h["n_reads"])
-        self._dev_reads = h["q_dev"]
-        self._dev_reads_n = h["n_reads"]
-        sub = h["sub"]
+        parts = h["parts"]
+        self._dev_shards = [(lo, hi, q_dev) for (lo, hi), (q_dev, _)
+                            in zip(h["bounds"], parts)]
+
+        def collect(k):
+            t0 = time.perf_counter()
+            batch = smem_torch.seed_collect_batch(parts[k][1])
+            self._stat("seed_s", time.perf_counter() - t0, shard=k)
+            return batch
+
         t0 = time.perf_counter()
-        batch = smem_torch.seed_collect_batch(sub)
+        batches = run_shards(collect, len(parts))
         self._stat("seed_s", time.perf_counter() - t0)
         self._stat("seed_batches")
-        h["sa_vals"] = sub.get("sa_vals") or [None] * len(sub["reads"])
-        return batch
+        h["sa_vals"] = [v for _, sub in parts
+                        for v in (sub.get("sa_vals")
+                                  or [None] * len(sub["reads"]))]
+        return IntvBatch.concat(batches)
 
     @staticmethod
     def _luts_from(owners, vals, n):
@@ -217,6 +274,11 @@ class BatchAligner:
     def extend_waves(self, seqs: list[np.ndarray], all_chains) -> list:
         """Stage 4: cross-read wave extension on the device (no dedup).
 
+        Each shard's reads form waves on the shard's device, addressed by
+        their shard-local index in its resident read block (global read
+        ids never reach the device). The loop serves the (shard, stream)
+        slots round-robin, so every device keeps two waves in flight.
+
         Each wave runs ONE banded try per extension side; bwa's band
         doubling (bwamem.c:737-744) is driven from here: a task whose
         max_off crossed the threshold is re-enqueued into a later wave
@@ -224,6 +286,17 @@ class BatchAligner:
         right-only@2w with the saved left half)."""
         opt, fm = self.opt, self.fm
         all_regs = [[] for _ in seqs]
+        dev_shards = self._dev_shards or [(0, len(seqs), None)]
+        S = len(dev_shards)
+        # each read's shard, and its row in the shard's resident block
+        # (-1: not device-seeded, too long for the smem_L bucket)
+        shard_of = [S - 1] * len(seqs)
+        dev_row = [-1] * len(seqs)
+        for k, (lo, hi, reads) in enumerate(dev_shards):
+            for r in range(lo, min(hi, len(seqs))):
+                shard_of[r] = k
+                if reads is not None and len(seqs[r]) <= self.smem_L:
+                    dev_row[r] = r - lo
 
         def read_gen(ridx):
             for c in all_chains[ridx]:
@@ -231,46 +304,41 @@ class BatchAligner:
                     opt, fm, len(seqs[ridx]), seqs[ridx], c, all_regs[ridx])
 
         gens = {}
-        pending = {}  # ridx -> [task, stage, saved_left_6tuple|None]
+        # per shard: ridx -> [task, stage, saved_left_6tuple|None]
+        pending = [dict() for _ in range(S)]
         for ridx in range(len(seqs)):
             g = read_gen(ridx)
             t = next(g, None)
             if t is not None:
                 gens[ridx] = g
-                pending[ridx] = [t, 0, None]
-
-        def dev_idx(ridx):
-            """Device read index of a task's read; -1 when the read was
-            not device-seeded (too long for the smem_L bucket)."""
-            if (self._dev_reads is None or ridx >= self._dev_reads_n
-                    or len(seqs[ridx]) > self.smem_L):
-                return -1
-            return ridx
+                pending[shard_of[ridx]][ridx] = [t, 0, None]
 
         def advance(ridx, result):
             """Feed a result; pull the next device-sized task (running
             oversized ones on the host inline). False when done."""
             g = gens[ridx]
+            pend = pending[shard_of[ridx]]
             res = result
             while True:
                 try:
                     t = g.send(res)
                 except StopIteration:
                     del gens[ridx]
-                    del pending[ridx]
+                    del pend[ridx]
                     return False
-                if self._fits(t, dev_idx(ridx)):
-                    pending[ridx] = [t, 0, None]
+                if self._fits(t, dev_row[ridx]):
+                    pend[ridx] = [t, 0, None]
                     return True
                 self._stat("ext_tasks_host")
                 res = regionops.run_task_host(opt, t)
 
         # bootstrap: oversized first tasks
-        for ridx in list(pending):
-            t = pending[ridx][0]
-            if not self._fits(t, dev_idx(ridx)):
-                self._stat("ext_tasks_host")
-                advance(ridx, regionops.run_task_host(opt, t))
+        for pend in pending:
+            for ridx in list(pend):
+                t = pend[ridx][0]
+                if not self._fits(t, dev_row[ridx]):
+                    self._stat("ext_tasks_host")
+                    advance(ridx, regionops.run_task_host(opt, t))
 
         W = opt.w
         RETRY_OFF = (W >> 1) + (W >> 2)   # max_off threshold at try 0
@@ -278,7 +346,7 @@ class BatchAligner:
         def handle(ridx, row):
             """Apply one wave result: finish the task or re-enqueue a
             band-doubling retry."""
-            entry = pending[ridx]
+            entry = pending[shard_of[ridx]][ridx]
             t, stage, lpart = entry
             (ls, lq, lt_, lg, lgs, lmo,
              rs_, rq, rt, rg, rgs, rmo) = row
@@ -304,23 +372,24 @@ class BatchAligner:
             advance(ridx, lfinal + rfinal)
 
         from ..utils.trace import GLOBAL as tracer
-        # two wave streams over disjoint reads: while one stream's result
-        # is copied back and its next wave packed, the other computes
+        # per shard, two wave streams over disjoint reads: while one
+        # stream's result is copied back and its next wave packed, the
+        # other computes
         busy: set = set()
 
-        def pack_and_run(buf):
+        def pack_and_run(k, buf):
             with tracer.span("wave.pack"):
                 buf.reset()
                 slots = []
-                for ridx, (t, stage, lpart) in pending.items():
+                for ridx, (t, stage, lpart) in pending[k].items():
                     if ridx in busy:
                         continue
                     if stage == 0:
-                        i = buf.add(t, dev_idx(ridx), W, W)
+                        i = buf.add(t, dev_row[ridx], W, W)
                     elif stage == 1:
-                        i = buf.add(t, dev_idx(ridx), W << 1, W)
+                        i = buf.add(t, dev_row[ridx], W << 1, W)
                     else:
-                        i = buf.add(t, dev_idx(ridx), W, W << 1,
+                        i = buf.add(t, dev_row[ridx], W, W << 1,
                                     skip_left=True, h0=lpart[0])
                     if i < 0:
                         break  # buffer full: the next wave takes the rest
@@ -328,11 +397,19 @@ class BatchAligner:
             if not slots:
                 return None
             busy.update(slots)
+            n0 = (extend_cuda.n_launches, extend_cuda.n_launches16)
             with tracer.span("wave.dispatch"):
-                out = buf.run_async(opt, self.dfm, self._dev_reads,
-                                    self.smem_L)
+                out = buf.run_async(opt, self.shards[k]["dfm"],
+                                    dev_shards[k][2], self.smem_L)
+            # waves launch from this thread only, so the counts' change
+            # is this wave's
+            self._stat("launches", extend_cuda.n_launches - n0[0], shard=k)
+            self._stat("launches16", extend_cuda.n_launches16 - n0[1],
+                       shard=k)
             self._stat("waves")
             self._stat("ext_tasks_device", len(slots))
+            self._stat("waves", shard=k)
+            self._stat("ext_tasks_device", len(slots), shard=k)
             return slots, out
 
         def apply(entry):
@@ -344,16 +421,20 @@ class BatchAligner:
                     busy.discard(ridx)
                     handle(ridx, rows[i])
 
-        streams = [pack_and_run(self.bufs[0]), pack_and_run(self.bufs[1])]
+        # (shard, stream) slots served round-robin; with one shard this is
+        # the two streams taking turns
+        order = [(k, self.shards[k]["bufs"][b]) for k in range(S)
+                 for b in (0, 1)]
+        streams = [pack_and_run(k, buf) for k, buf in order]
         s = 0
-        while streams[0] is not None or streams[1] is not None:
+        while any(e is not None for e in streams):
             if streams[s] is not None:
                 apply(streams[s])
                 streams[s] = None
-                streams[s] = pack_and_run(self.bufs[s])
-            o = 1 - s
+                streams[s] = pack_and_run(*order[s])
+            o = (s + 1) % len(order)
             if streams[o] is None:
-                streams[o] = pack_and_run(self.bufs[o])
+                streams[o] = pack_and_run(*order[o])
             s = o
         return all_regs
 
@@ -364,11 +445,11 @@ class BatchAligner:
         W2 = (self.opt.w << 1) + 1
         qr = t.l_query - (t.qbeg + t.slen)
         return (read_idx >= 0
-                and t.qbeg <= self.buf.qmax
-                and qr <= self.buf.qmax
-                and min(t.rbeg - t.rmax0, t.qbeg + W2) <= self.buf.tmax
+                and t.qbeg <= self.qmax
+                and qr <= self.qmax
+                and min(t.rbeg - t.rmax0, t.qbeg + W2) <= self.tmax
                 and min(t.rmax1 - (t.rbeg + t.slen),
-                        qr + W2) <= self.buf.tmax)
+                        qr + W2) <= self.tmax)
 
     # ------------------------------------------------------------------
     def align_se(self, reads: list[Read], n_processed: int = 0,

@@ -13,9 +13,13 @@ Port of bwa_flow_tpu/pipeline/dataflow.py (its pure-Python route):
     thread), batch N+1's device work runs on the main thread;
   - finished batches are emitted in order on the main process.
 
-The pool is created before the device upload of the index. Workers only
-run NumPy host stages (mate rescue included: ksw_align2 is host code) and
-never touch torch.cuda.
+With several devices (`devices`), the batch aligner cuts each batch
+into per-device shards (pipeline/batch.py); the host stages and the
+emission still see whole batches in read order.
+
+The pool is created before the device upload of the index and its
+replicas. Workers only run NumPy host stages (mate rescue included:
+ksw_align2 is host code) and never touch torch.cuda.
 """
 
 from __future__ import annotations
@@ -87,12 +91,14 @@ def _slices(items, n_slices):
 class AlignPipeline:
     """Device + worker-pool aligner over a batch stream. Paired-end
     batches hold mates interleaved; `pes0` (the -I option) replaces the
-    per-batch insert-size estimate."""
+    per-batch insert-size estimate. `devices`, a list of torch devices,
+    shards every batch over them (BatchAligner); else the run is on
+    `device`."""
 
     def __init__(self, opt: MemOpt, fm, paired: bool = False,
                  n_workers: int = 0, rg_id: str = "", pes0=None,
                  aligner_kw: dict | None = None, mp_context: str = "fork",
-                 device=None):
+                 device=None, devices=None):
         self.opt = opt
         self.fm = fm
         self.paired = paired
@@ -108,7 +114,7 @@ class AlignPipeline:
             self.pool = ctx.Pool(n_workers, initializer=_init_worker,
                                  initargs=(opt, fm, rg_id))
         try:
-            self.ba = BatchAligner(opt, fm, device=device,
+            self.ba = BatchAligner(opt, fm, device=device, devices=devices,
                                    **(aligner_kw or {}))
         except BaseException:
             self.close()

@@ -58,7 +58,20 @@ Phases:
      kernel, both parts must hold records, and their union must equal
      the one-process SAM. This shows the path works, not scale-out
      speed: both ranks share one card and the host's cores.
-  8. one JSON line describing the kernels (ms, plain_ms and bound_ms at
+  8. the coupled two-try seed_extend_batch on 4096 lanes of
+     make_coupled_tasks (qmax=160, tmax=512; both sides, one side empty,
+     2w retries on each side) against its plain version on the CPU
+     under phase 2's three scorings, timed with CUDA events. Then one
+     process on two shards (--local-devices): two distinct cards when
+     the host has two, else two shards, each with its own index
+     replica, on the one card. The mesh dry run (entry.dryrun_multichip:
+     the sharded seed + coupled-extension step with its psum checks,
+     then the production pipeline with two shards, SAM equal to one
+     device); entry()'s step on the card against the CPU; then phase
+     3's single-end run over the shards through the CLI's _mem: every
+     shard must have run waves on the int32 kernel, and the records
+     must equal phase 3's full.sam byte for byte.
+  9. one JSON line describing the kernels (ms, plain_ms and bound_ms at
      the path's mean wave; *_b4096 at B=4096; launches on each path),
      the device line, and as the last line {"ok": true, "device":
      {...}}.
@@ -93,6 +106,7 @@ N_PAIRS = 8192
 INSERT_MEAN, INSERT_SD = 400, 40
 RANK_BATCH = 1024            # reads a work-queue batch in phase 7
 RANK_TIMEOUT = 600           # seconds a rank of phase 7 may take
+LD_SHARDS = 2                # shards of phase 8's one process
 QMAX, TMAX = 160, 512        # the wave shapes of the main path
 B_EXT = 4096
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM; int32 ops run on the 64
@@ -319,6 +333,69 @@ def scorings():
             ("zdrop=0 asymmetric gaps", asym, 0)]
 
 
+def ext_scorings():
+    """(name, MemOpt, w, zdrop) of phase 2's extension checks: bwa
+    defaults, the defaults with a narrow band, and asymmetric gaps
+    without z-drop."""
+    (dname, opt, dzd), (aname, asym, azd) = scorings()
+    return [(dname, opt, opt.w, dzd), ("narrow band w=10", opt, 10, dzd),
+            (aname, asym, asym.w, azd)]
+
+
+def make_coupled_tasks(rng, genome: np.ndarray, n: int, qmax: int = QMAX,
+                       tmax: int = TMAX):
+    """Coupled seed-extension tasks (the inputs of seed_extend_batch)
+    around 19-32 bp seeds (h0 = seed length) of reads of `genome`
+    (symbols 0..3) with 1% substitutions: left query/target reversed,
+    each side up to qmax query bases and a target window 0-40 bases
+    longer (at most tmax). Lane kinds by lane % 8: 0 no left side, 1 no
+    right side, 2 and 3 a block of random bases inserted in the left (2)
+    or right (3) target a few bases from the seed (80 bases in every
+    other group of 8 lanes, with a 90-110 bp seed on the left; else
+    9-12), so that the best path leaves the diagonal and bwa's 2w retry
+    runs (80 under a band of 100, 9-12 under a band of 10); the rest
+    plain. Returns (ql_q, ql_n, tl_t, tl_n, qr_q, qr_n, tr_t, tr_n, h0)
+    as int32 arrays."""
+    qs = {s: np.zeros((n, qmax), np.int32) for s in "lr"}
+    ts = {s: np.zeros((n, tmax), np.int32) for s in "lr"}
+    qn = {s: np.zeros(n, np.int32) for s in "lr"}
+    tn = {s: np.zeros(n, np.int32) for s in "lr"}
+    h0 = np.zeros(n, np.int32)
+    for b in range(n):
+        kind = b % 8
+        gap = 80 if (b // 8) % 2 == 0 else int(rng.integers(9, 13))
+        # the left side's rows cross an 80-base gap only from a score
+        # above its cost (o_del + 80 e_del): those lanes get a long SMEM
+        slen = int(rng.integers(90, 111) if kind == 2 and gap == 80
+                   else rng.integers(19, 33))
+        pos = int(rng.integers(tmax + 1, len(genome) - slen - tmax - 1))
+        for side, empty, gapped in (("l", 0, 2), ("r", 1, 3)):
+            if kind == empty:
+                continue
+            g = gap if kind == gapped else 0
+            nq = int(rng.integers(qmax * 3 // 4 if g else 1, qmax + 1))
+            span = min(tmax, nq + g + int(rng.integers(0, 41)))
+            # reference read away from the seed: leftwards, reversed,
+            # for the left side
+            ref = genome[pos - span:pos][::-1] if side == "l" else \
+                genome[pos + slen:pos + slen + span]
+            q = ref[:nq].astype(np.int32)
+            m = rng.random(nq) < 0.01
+            q[m] = (q[m] + rng.integers(1, 4, int(m.sum()))) % 4
+            t = ref.astype(np.int32)
+            if g:
+                k = int(rng.integers(2, 8))
+                t = np.concatenate([t[:k], rng.integers(0, 4, g),
+                                    t[k:]])[:span]
+            qs[side][b, :nq] = q
+            qn[side][b] = nq
+            ts[side][b, :span] = t
+            tn[side][b] = span
+        h0[b] = slen
+    return (qs["l"], qn["l"], ts["l"], tn["l"], qs["r"], qn["r"], ts["r"],
+            tn["r"], h0)
+
+
 def _time_ms(fn, n: int, fill: bool = False) -> float:
     """Mean device ms of fn over n calls, from CUDA events. With fill, a
     spin kernel (torch.cuda._sleep) first holds the stream for about
@@ -345,10 +422,23 @@ def _time_ms(fn, n: int, fill: bool = False) -> float:
 
 
 def _diff(got, want) -> tuple[int, int]:
-    """(max |err|, mismatching values) over the six outputs."""
-    err = max(int((a.long() - b.long()).abs().max())
-              for a, b in zip(got, want))
-    return err, sum(int((a != b).sum()) for a, b in zip(got, want))
+    """(max |err|, mismatching values) over two sequences of output
+    tensors, on any devices; an element may itself be a sequence (the
+    ext tuple of entry()'s outputs). A shape mismatch counts every value
+    as mismatching."""
+    pairs = []
+    for g, w in zip(got, want):
+        pairs += list(zip(g, w)) if isinstance(g, (tuple, list)) \
+            else [(g, w)]
+    err = bad = 0
+    for g, w in pairs:
+        g, w = g.cpu().long(), w.cpu().long()
+        if g.shape != w.shape:
+            return -1, max(g.numel(), w.numel())
+        if g.numel():
+            err = max(err, int((g - w).abs().max()))
+        bad += int((g != w).sum())
+    return err, bad
 
 
 def _kernels() -> dict:
@@ -391,12 +481,9 @@ def phase_kernels(genome: np.ndarray, device) -> dict:
 
     args = _ext_args(genome, device)
     h0 = args[4].cpu().numpy()
-    (dname, opt, dzd), (aname, asym, azd) = scorings()
     kernels = _kernels()
     res = {name: dict(max_abs_err=0) for name in kernels}
-    for si, (sname, o, w, zd) in enumerate([
-            (dname, opt, opt.w, dzd), ("narrow band w=10", opt, 10, dzd),
-            (aname, asym, asym.w, azd)]):
+    for si, (sname, o, w, zd) in enumerate(ext_scorings()):
         if not extend_cuda.i16_exact(QMAX, int(h0.max()), int(o.mat.max()),
                                      o.pen_clip3):
             raise SystemExit(f"scoring {sname} is outside the int16 bound")
@@ -1009,6 +1096,148 @@ def phase_two_ranks(work: Path, device: str) -> dict:
     return dict(launches=launches, one_launches=one_launches)
 
 
+def phase_seed_extend_batch(genome: np.ndarray, device: str) -> dict:
+    """The coupled two-try seed_extend_batch on B_EXT lanes of
+    make_coupled_tasks at the main path's shapes, on the card against
+    its plain version on the CPU, under phase 2's three scorings; timed
+    with CUDA events. The defaults must have lanes with both sides, with
+    one, and 2w retries on each side."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.ops.chain2aln_torch import seed_extend_batch
+
+    a = make_coupled_tasks(np.random.default_rng(0xC0DE), genome, B_EXT)
+    both = int(((a[1] > 0) & (a[5] > 0)).sum())
+    one = int(((a[1] > 0) != (a[5] > 0)).sum())
+    cpu_args = [torch.as_tensor(x) for x in a]
+    dev_args = [x.to(device) for x in cpu_args]
+    out: dict = {}
+    for si, (sname, o, w, zd) in enumerate(ext_scorings()):
+        mat = torch.as_tensor(np.ascontiguousarray(o.mat[:5, :5]),
+                              dtype=torch.int32)
+        mat_dev = mat.to(device)
+        sc = (o.o_del, o.e_del, o.o_ins, o.e_ins, w, o.pen_clip5,
+              o.pen_clip3, zd)
+
+        def run_dev():
+            return seed_extend_batch(QMAX, TMAX, *dev_args, mat_dev, *sc)
+        extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+        got = run_dev()
+        launches = extend_cuda.n_launches
+        t0 = time.perf_counter()
+        want = seed_extend_batch(QMAX, TMAX, *cpu_args, mat, *sc)
+        cpu_s = time.perf_counter() - t0
+        err, bad = _diff(got, want)
+        nl = int((got[5] == 2 * w).sum())
+        nr = int((got[11] == 2 * w).sum())
+        ms = _time_ms(run_dev, 10, fill=True) if device == "cuda" else 0.0
+        print(f"[seb] seed_extend_batch {sname}: B={B_EXT} ({both} lanes "
+              f"with both sides, {one} with one), 2w retries left {nl} "
+              f"right {nr}; mismatching values {bad} vs the CPU, max "
+              f"|err| {err}; {launches} ksw_extend2 launches, {ms:.4f} "
+              f"ms on the card (CUDA events), CPU {cpu_s:.2f} s")
+        if bad:
+            raise SystemExit(f"seed_extend_batch disagrees under {sname}")
+        if device == "cuda" and launches != 4:
+            raise SystemExit(f"seed_extend_batch launched ksw_extend2 "
+                             f"{launches} times, not 4")
+        if si == 0:
+            if not (nl and nr and both and one):
+                raise SystemExit("the coupled mix lacks retry lanes or "
+                                 "empty sides under the defaults")
+            out = dict(launches=launches, ms=ms, cpu_s=cpu_s,
+                       retries=[nl, nr], max_abs_err=err)
+    return out
+
+
+def phase_local_devices(work: Path, device: str, n_shards: int) -> dict:
+    """One process on n_shards shards, shard i on card i % device_count
+    (distinct cards when the host has n_shards, else several shards,
+    each with its own index replica, on one card): the mesh dry run,
+    entry() on the card against the CPU, then phase 3's single-end run
+    sharded through the CLI's _mem; its records must equal phase 3's
+    full.sam, and every shard must have run waves on the int32
+    kernel."""
+    import torch
+
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch import entry as port_entry
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
+
+    count = torch.cuda.device_count() if device == "cuda" else 1
+    devices = [torch.device(device, i % count) if device == "cuda"
+               else torch.device(device) for i in range(n_shards)]
+    print(f"[ld] {n_shards} shards on {', '.join(map(str, devices))}: "
+          + ("distinct cards" if count >= n_shards else
+             f"{count} card(s), one index replica a shard"))
+    out: dict = {}
+
+    # the sharded device step and the production pipeline, tiny shapes
+    t0 = time.perf_counter()
+    extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+    dry = port_entry.dryrun_multichip(n_shards, devices)
+    out["mesh_launches"] = extend_cuda.n_launches
+    print(f"[ld] dryrun_multichip({n_shards}): checks passed, hist sum "
+          f"{sum(dry['hist'])}, score_sum {dry['score_sum']}, production "
+          f"pipeline SAM == one device; per shard waves "
+          f"{[s['waves'] for s in dry['shards']]}; ksw_extend2 launches "
+          f"{out['mesh_launches']}; {time.perf_counter() - t0:.1f} s")
+    if device == "cuda" and out["mesh_launches"] <= 0:
+        raise SystemExit("the mesh dry run launched no ksw_extend2")
+
+    # entry(): the card against the plain versions on the CPU
+    fn, args = port_entry.entry(device)
+    got = fn(*args)
+    fn_c, args_c = port_entry.entry("cpu")
+    err, bad = _diff(got, fn_c(*args_c))
+    print(f"[ld] entry(): {device} vs cpu, mismatching values {bad}, max "
+          f"|err| {err}")
+    if bad:
+        raise SystemExit("entry() on the card differs from the CPU")
+    # phase 3's single-end run over the shards, the CLI's own emit
+    ref, fq = str(work / "ref.fa"), str(work / "reads.fq")
+    argv = ["-t", "8", "--batch-reads", str(BATCH), "--device", device,
+            "-o", str(work / "ld.sam"), ref, fq]
+    args = cli._mem_parser().parse_args(argv)
+    os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
+    extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+    tracer.totals.clear()
+    tracer.counts.clear()
+    t0 = time.perf_counter()
+    assert cli._mem(args, argv, cli.build_opt(args), 0, 1,
+                    devices=devices) == 0
+    dt = time.perf_counter() - t0
+    launches, launches16 = extend_cuda.n_launches, extend_cuda.n_launches16
+    st = dict(cli.last_run_stats)
+    print(f"[ld] mem {N_READS} reads over {n_shards} shards: {dt:.2f} s, "
+          f"{N_READS / dt:.1f} reads/s (index load included); waves "
+          f"{st['waves']}, device tasks {st['ext_tasks_device']}, host "
+          f"tasks {st['ext_tasks_host']}, band retries "
+          f"{st['band_retries']}; ksw_extend2 launches {launches}, "
+          f"ksw_extend2_i16 {launches16}")
+    for i, sh in enumerate(st["shards"]):
+        print(f"[ld] shard {i} on {sh['device']}: seed_s "
+              f"{sh['seed_s']:.3f}, waves {sh['waves']}, device tasks "
+              f"{sh['ext_tasks_device']}, ksw_extend2 launches "
+              f"{sh['launches']}, ksw_extend2_i16 {sh['launches16']}")
+    print(f"[ld] spans (host wall clock, s): {tracer.as_json()}")
+    if len(st["shards"]) != n_shards or any(
+            sh["ext_tasks_device"] <= 0 for sh in st["shards"]) or (
+            device == "cuda" and (launches16 or any(
+                sh["launches"] <= 0 for sh in st["shards"]))):
+        raise SystemExit("a shard ran no waves on the int32 kernel")
+    mine, want = _body(work / "ld.sam"), _body(work / "full.sam")
+    if mine != want:
+        raise SystemExit(f"the {n_shards}-shard SAM differs from phase "
+                         "3's full.sam")
+    print(f"[ld] ld.sam == full.sam ({len(mine)} lines, @PG aside)")
+    out.update(launches=launches, reads_per_s=N_READS / dt, wall_s=dt,
+               shard_launches=[sh["launches"] for sh in st["shards"]])
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1062,11 +1291,19 @@ def main() -> int:
                  "ksw_extend2_i16": pres["path"]})
     sres = timed_phase("6 sorted BAM", phase_sort_path, WORK, "cuda")
     rres = timed_phase("7 two ranks", phase_two_ranks, WORK, "cuda")
+    bres = timed_phase("8 seed_extend_batch", phase_seed_extend_batch, genome,
+                       "cuda")
+    lres = timed_phase("8 local devices", phase_local_devices, WORK, "cuda",
+                       LD_SHARDS)
     launches_by_path = {
         "ksw_extend2": {"single_end": mres["launches"],
                         "sort": sres["launches"],
                         "one_process": rres["one_launches"],
-                        "ranks": rres["launches"]},
+                        "ranks": rres["launches"],
+                        "local_devices": lres["launches"],
+                        "local_devices_shards": lres["shard_launches"],
+                        "seed_extend_batch": bres["launches"],
+                        "mesh_dryrun": lres["mesh_launches"]},
         "ksw_extend2_i16": {"paired_end": pres["launches"]}}
 
     # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
@@ -1093,6 +1330,9 @@ def main() -> int:
             "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
             "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
     kernels[0]["sort_path_device_ms"] = sres["path"]["device_ms"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    bres["max_abs_err"])
+    kernels[0]["seed_extend_batch_ms_b4096"] = bres["ms"]
     print(json.dumps({"kernels": kernels}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -2,7 +2,8 @@
 `python -m bwa_flow_tpu` on the fixture of tests/test_cli.py: index files
 byte-equal, single-end and paired-end mem SAM equal apart from @PG
 (paired-end also with the int16 extension core and with -I),
---no-device equal too; `--sort` BAMs equal after decompression."""
+--no-device equal too, and so are runs sharded over CPU devices with
+--local-devices; `--sort` BAMs equal after decompression."""
 
 import gzip
 import os
@@ -147,7 +148,7 @@ def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
     assert bool(calls) == (mode == "device_cpu_int16")
 
 
-@pytest.mark.parametrize("extra", [["--local-devices", "2"],
+@pytest.mark.parametrize("extra", [["--device-timeout", "1"],
                                    ["--validate-every", "1"],
                                    ["--ext-mode", "waves"]])
 def test_later_slice_options_exit_nonzero(workdir, extra):
@@ -155,6 +156,49 @@ def test_later_slice_options_exit_nonzero(workdir, extra):
         cli.main(["mem", "--device", "cpu"] + extra
                  + [str(workdir / "ref.fa"), str(workdir / "se.fq")])
     assert e.value.code not in (0, None)
+    assert "not ported" in str(e.value.code)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2])
+def test_local_devices_se_equals_one_device_and_jax(workdir, n):
+    """--local-devices 2 shards every batch over two CPU shards; 0 and 1
+    are the one-device path. The SAM equals the one-device --device cpu
+    run's and the JAX package's."""
+    out = workdir / f"se_ld{n}.sam"
+    assert cli.main(["mem", "--device", "cpu", "--local-devices", str(n),
+                     "-o", str(out), str(workdir / "ref.fa"),
+                     str(workdir / "se.fq")]) == 0
+    assert _body(out) == _body(workdir / "jax" / "se.sam")
+    shards = cli.last_run_stats["shards"]
+    assert len(shards) == max(n, 1)
+    assert all(sh["ext_tasks_device"] > 0 for sh in shards)
+    if n == 2:
+        one = workdir / "se_device_cpu.sam"
+        if not one.exists():
+            assert cli.main(["mem", "--device", "cpu", "-o", str(one),
+                             str(workdir / "ref.fa"),
+                             str(workdir / "se.fq")]) == 0
+        assert _body(out) == _body(one)
+
+
+def test_local_devices_pe_equals_jax(workdir):
+    out = workdir / "pe_ld2.sam"
+    assert cli.main(["mem", "--device", "cpu", "--local-devices", "2",
+                     "-o", str(out), str(workdir / "ref.fa"),
+                     str(workdir / "r1.fq"), str(workdir / "r2.fq")]) == 0
+    assert _body(out) == _body(workdir / "jax" / "pe.sam")
+    assert len(cli.last_run_stats["shards"]) == 2
+
+
+def test_local_devices_choice():
+    """CPU shards as asked; CUDA shards never fall back to the CPU."""
+    cpu = torch.device("cpu")
+    assert cli.local_devices("cpu", 3) == [cpu] * 3
+    assert cli.local_devices("cuda", 1) is None
+    assert cli.local_devices("cuda", 0) is None
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.local_devices("cuda", 2)
 
 
 def _bam_parts(path):
