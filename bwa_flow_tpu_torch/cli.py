@@ -4,8 +4,15 @@ Port of bwa_flow_tpu/cli.py for `mem` on single-end and paired-end
 reads (two FASTQs, or one interleaved with -p), with SAM or a
 coordinate-sorted BAM (--sort) as output, in one process or in several
 (--nprocs/--proc-id/--coordinator, --dist pull|stride), on one device or
-on several from one process (--local-devices N). Options of later slices
-(--validate-every, --device-timeout, --ext-mode) exit with a message.
+on several from one process (--local-devices N).
+
+--validate-every N and --device-timeout S are the JAX package's result
+validation and hang watchdog, with one difference: where the JAX package
+degrades to the host for the rest of the run, a mismatch or a hang here
+prints `[E::mem] ...` and the run exits non-zero. --ext-mode waves is
+what runs; --ext-mode host (or BWA_TPU_EXT=host) exits with a message,
+since harvester-thread extension needs the JAX package's native _wave
+driver.
 
 --local-devices N shards every batch over N devices of this process
 (one index replica, seed program and wave streams on each; the SAM is
@@ -38,14 +45,11 @@ from .index.build import index_fasta
 from .index.io import load_index, save_index
 from .io.fastq import read_batches
 from .parallel import distributed as dist
+from .pipeline.batch import DeviceResultError
 from .utils.opts import (MEM_F_ALL, MEM_F_KEEP_SUPP_MAPQ, MEM_F_NO_MULTI,
                          MEM_F_NO_RESCUE, MEM_F_PE, MEM_F_PRIMARY5,
                          MEM_F_REF_HDR, MEM_F_SMARTPE, MEM_F_SOFTCLIP,
                          MemOpt)
-
-_LATER = "is not ported to bwa_flow_tpu_torch yet"
-_LATER_OPTS = ("--validate-every", "--device-timeout", "--ext-mode")
-
 
 def _mem_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -122,9 +126,21 @@ def _mem_parser() -> argparse.ArgumentParser:
       "process (0 or 1: one device); cuda: min(N, device_count) cards "
       "from the first (with --nprocs, from card pid %% device_count); "
       "cpu: N shards")
-    # options of later slices: accepted, then refused with a message
-    for opt in _LATER_OPTS:
-        a(opt, default=None)
+    a("--validate-every", type=int, dest="validate_every", default=0,
+      metavar="N", help="cross-check a sample of every Nth device batch "
+      "against the golden model; a mismatch fails the run (the JAX "
+      "package degrades to the host instead)")
+    a("--device-timeout", type=float, dest="device_timeout", default=300.0,
+      metavar="S", help="seconds before device work is declared hung; "
+      "the run then fails (the JAX package degrades to the host "
+      "instead); 0 disables")
+    a("--ext-mode", choices=("host", "waves"), default=None,
+      dest="ext_mode", help="extension placement: waves = device "
+      "extension waves, what this port runs; host (also from "
+      "BWA_TPU_EXT=host) is refused: harvester-thread extension needs "
+      "the JAX package's native _wave driver, which this port may not "
+      "import. On the JAX package's pure-Python route neither value "
+      "changes anything")
     a("--help", action="help")
     a("ref")
     a("fastq", nargs="+")
@@ -278,9 +294,12 @@ def _rg_id(rg_line) -> str:
 
 def main_mem(argv: list[str]) -> int:
     args = _mem_parser().parse_args(argv)
-    for name in _LATER_OPTS:
-        if getattr(args, name[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"[E] {name} {_LATER}")
+    if (args.ext_mode or os.environ.get("BWA_TPU_EXT")) == "host":
+        raise SystemExit(
+            "[E] --ext-mode host (or BWA_TPU_EXT=host) runs extension on "
+            "harvester threads, which needs the JAX package's native "
+            "_wave driver; bwa_flow_tpu_torch may not import it and runs "
+            "device extension waves (--ext-mode waves)")
     if args.sort and args.output == "-":
         raise SystemExit("[E] --sort requires -o FILE.bam")
     opt = build_opt(args)
@@ -288,6 +307,11 @@ def main_mem(argv: list[str]) -> int:
                                         args.proc_id)
     try:
         return _mem(args, argv, opt, pid, nprocs)
+    except (TimeoutError, DeviceResultError) as e:
+        # no fallback to the host: the run fails (the blocked device work,
+        # if any, is not waited for)
+        print(f"[E::mem] {e}", file=sys.stderr)
+        raise SystemExit(1) from e
     finally:
         dist.shutdown()
 
@@ -450,7 +474,9 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
                                  n_workers=max(0, args.n_threads - 1),
                                  rg_id=rg, pes0=pes0,
                                  mp_context=args.mp_context, device=device,
-                                 devices=devices)
+                                 devices=devices,
+                                 validate_every=args.validate_every,
+                                 device_timeout=args.device_timeout)
             try:
                 pipe.run(batches(), emit)
             finally:
@@ -525,3 +551,20 @@ def main(argv: list[str] | None = None) -> int:
         return main_index(rest)
     print(f"[E] unknown command '{cmd}'", file=sys.stderr)
     return 1
+
+
+def entry_main(argv: list[str] | None = None) -> None:
+    """`python -m bwa_flow_tpu_torch`: main() as the process's exit. After
+    a TimeoutError the hung card still holds queued work, and the
+    interpreter's teardown would wait for it; so the process leaves
+    without that teardown (stdio flushed; the worker pool and the
+    process group were closed on the way out of main)."""
+    try:
+        code = main(argv)
+    except SystemExit as e:
+        if isinstance(e.__cause__, TimeoutError):
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
+        raise
+    sys.exit(code)

@@ -28,6 +28,7 @@ import torch
 
 from .. import resolve_device
 from . import extend_cuda, extend_torch
+from .fm_torch import to_host
 
 I32 = torch.int32
 I64 = torch.int64
@@ -151,10 +152,12 @@ class SeedExtendTaskBuffer:
         self.n += 1
         return i
 
-    def run(self, opt, device=None) -> tuple[np.ndarray, ...]:
+    def run(self, opt, device=None, fetch=to_host
+            ) -> tuple[np.ndarray, ...]:
         """Run every slot (all `cap`, as the JAX buffer does) on `device`
         (cuda unless the caller asks for the CPU); returns the 12 outputs
-        of seed_extend_batch as int32[cap] host arrays."""
+        of seed_extend_batch as int32[cap] host arrays, read with
+        `fetch`."""
         dev = resolve_device(device)
 
         def put(a):
@@ -166,7 +169,7 @@ class SeedExtendTaskBuffer:
             put(np.ascontiguousarray(opt.mat[:5, :5], dtype=np.int32)),
             opt.o_del, opt.e_del, opt.o_ins, opt.e_ins, opt.w,
             opt.pen_clip5, opt.pen_clip3, opt.zdrop)
-        return tuple(o.cpu().numpy() for o in out)
+        return tuple(fetch(o) for o in out)
 
 
 def _pac_window_batch(dfm, start: torch.Tensor, step_down: bool, N: int
@@ -336,9 +339,11 @@ class DescTaskBuffer:
             self._params_cache = cache
         return cache
 
-    def run(self, opt, dfm, reads_dev, L_reads: int) -> np.ndarray:
-        """Run the wave; returns int32[12, cap] on the host."""
-        return self.run_async(opt, dfm, reads_dev, L_reads).cpu().numpy()
+    def run(self, opt, dfm, reads_dev, L_reads: int, fetch=to_host
+            ) -> np.ndarray:
+        """Run the wave; returns int32[12, n] on the host, read with
+        `fetch`."""
+        return fetch(self.run_async(opt, dfm, reads_dev, L_reads))
 
     def run_async(self, opt, dfm, reads_dev, L_reads: int) -> torch.Tensor:
         """Enqueue the wave over the filled slots; returns the device

@@ -15,6 +15,10 @@ torch has no unsigned 32-bit shifts or popcount: the packed words widen
 to int64 (masked to 32 bits) and a SWAR popcount counts the slots.
 Coordinates are int64 ("wide"), or int32 on a narrow view of a sub-2^31
 genome; the dtype of the probe tensor and of ``L2`` carries through.
+
+Every read of the device from the host goes through a `fetch` argument
+(to_host by default), so the batch aligner can put its hang watchdog
+(pipeline/batch.py, BatchAligner.fetch) in front of each.
 """
 
 from __future__ import annotations
@@ -29,6 +33,13 @@ from ..index.fmindex import BLOCK, FMIndex
 
 _M32 = 0xFFFFFFFF
 _PAIR = 0x55555555
+
+
+def to_host(t) -> np.ndarray:
+    """Device -> host copy (blocks until the producing work is done): the
+    default `fetch` of every function of the port that reads the
+    device."""
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
 @dataclasses.dataclass
@@ -58,8 +69,11 @@ class DeviceFM:
         return self.fm_blocks.device
 
     @classmethod
-    def from_host(cls, fm: FMIndex, device, dense_sa_max: int | None = None
-                  ) -> "DeviceFM":
+    def from_host(cls, fm: FMIndex, device, dense_sa_max: int | None = None,
+                  fetch=to_host) -> "DeviceFM":
+        """Upload `fm`; a sub-2^31 genome no longer than dense_sa_max
+        (BWA_TPU_DENSE_SA_MAX, 2^28 by default) also gets its dense SA,
+        walked on the device (`fetch` reads the walks' results)."""
         device = torch.device(device)
         if fm.bns is not None:
             pac = fm.bns.pac
@@ -88,7 +102,7 @@ class DeviceFM:
             dense_sa_max = int(os.environ.get("BWA_TPU_DENSE_SA_MAX",
                                               1 << 28))
         if 0 < fm.seq_len <= min(dense_sa_max, (1 << 31) - 1):
-            dense = _densify_sa(dfm, fm)
+            dense = _densify_sa(dfm, fm, fetch)
             dfm.sa_dense = torch.as_tensor(np.array(dense, np.int32),
                                            device=device)
         return dfm
@@ -292,12 +306,13 @@ def _inv_psi_batch(dfm: DeviceFM, k: torch.Tensor) -> torch.Tensor:
     return torch.where(k == dfm.primary, 0, lf)
 
 
-def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8):
+def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8,
+             fetch=to_host):
     """T LF steps over every lane; dead lanes (sampled rows) hold. Stops
-    early once every lane is dead (checked every `check` steps; the
-    remaining steps would change nothing)."""
+    early once every lane is dead (read with `fetch` every `check` steps;
+    the remaining steps would change nothing)."""
     for it in range(T):
-        if it % check == 0 and not bool(((kk & mask) != 0).any()):
+        if it % check == 0 and not fetch(((kk & mask) != 0).any()):
             break
         live = (kk & mask) != 0
         kk = torch.where(live, _inv_psi_batch(dfm, kk), kk)
@@ -306,14 +321,16 @@ def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8):
 
 
 def sa_batch(dfm: DeviceFM, k: torch.Tensor, max_iters: int = 256,
-             intv: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+             intv: int = 0, fetch=to_host
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Suffix-array values (bwa/bwt.c:86-96). k: int64[B] (or int32 on a
     narrow view). With a dense SA this is one gather. Otherwise an LF
     walk; with `intv` (the sampled interval) it is PHASED: 2*intv steps
     over all lanes, the survivors compacted into a B/4 pool for 4*intv
     more, then a B/16 pool walks to max_iters. Returns (sa int64[B],
     overflow bool[B]); overflow lanes (budget or pool exhausted) are
-    redone by the caller on the host."""
+    redone by the caller on the host. The walk's stop reads go through
+    `fetch`."""
     if dfm.sa_dense is not None:
         idx = k.clamp(0, dfm.sa_dense.shape[0] - 1).long()
         return (dfm.sa_dense[idx].to(torch.int64),
@@ -322,7 +339,7 @@ def sa_batch(dfm: DeviceFM, k: torch.Tensor, max_iters: int = 256,
     B = k.shape[0]
     kk, steps = k, torch.zeros_like(k)
     if intv > 0 and B >= 64:
-        kk, steps = _lf_walk(dfm, mask, kk, steps, 2 * intv)
+        kk, steps = _lf_walk(dfm, mask, kk, steps, 2 * intv, fetch=fetch)
 
         def compact_pool(kk, CAP):
             live = (kk & mask) != 0
@@ -335,23 +352,25 @@ def sa_batch(dfm: DeviceFM, k: torch.Tensor, max_iters: int = 256,
 
         # survivors (~e^-2) -> B/4 pool, 4*intv fixed steps
         src = compact_pool(kk, B // 4)
-        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], 4 * intv)
+        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], 4 * intv,
+                          fetch=fetch)
         kk = kk.index_put((src,), kp)
         steps = steps.index_put((src,), sp)
         # stragglers (~e^-6) -> B/16 pool, walk to the budget
         src = compact_pool(kk, B // 16)
-        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], max_iters, 1)
+        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], max_iters, 1,
+                          fetch)
         kk = kk.index_put((src,), kp)
         steps = steps.index_put((src,), sp)
     else:
-        kk, steps = _lf_walk(dfm, mask, kk, steps, max_iters, 1)
+        kk, steps = _lf_walk(dfm, mask, kk, steps, max_iters, 1, fetch)
     # pool-dropped lanes never finish: flagged as overflow
     overflow = (kk & mask) != 0
     idx = (kk // dfm.sa_intv).clamp(0, dfm.sa.shape[0] - 1).long()
     return (steps + dfm.sa[idx]).to(torch.int64), overflow
 
 
-def _densify_sa(dfm: DeviceFM, fm: FMIndex) -> np.ndarray:
+def _densify_sa(dfm: DeviceFM, fm: FMIndex, fetch=to_host) -> np.ndarray:
     """Full int32 SA of a sub-2^31 genome, computed once at upload time
     by LF-walking every row on the device in fixed-size chunks (SA
     lookup then becomes one gather). Cached beside the index as
@@ -382,9 +401,9 @@ def _densify_sa(dfm: DeviceFM, fm: FMIndex) -> np.ndarray:
         m = min(CH, n - off)
         pad = torch.zeros(CH, dtype=torch.int64, device=dev)
         pad[:m] = torch.arange(off, off + m, dtype=torch.int64, device=dev)
-        vals_t, ovf_t = sa_batch(dfm, pad, 1024, int(fm.sa_intv))
-        vals = vals_t[:m].to(torch.int32).cpu().numpy()
-        ovf = np.nonzero(ovf_t[:m].cpu().numpy())[0]
+        vals_t, ovf_t = sa_batch(dfm, pad, 1024, int(fm.sa_intv), fetch)
+        vals = fetch(vals_t[:m].to(torch.int32))
+        ovf = np.nonzero(fetch(ovf_t[:m]))[0]
         if len(ovf) > 256:
             # one deep device redo for the straggler tail
             W = 1024
@@ -393,9 +412,9 @@ def _densify_sa(dfm: DeviceFM, fm: FMIndex) -> np.ndarray:
             pad2 = np.zeros(W, dtype=np.int64)
             pad2[:len(ovf)] = off + ovf
             v2, o2 = sa_batch(dfm, torch.as_tensor(pad2, device=dev),
-                              16384, 0)
-            vals[ovf] = v2[:len(ovf)].cpu().numpy().astype(np.int32)
-            ovf = ovf[o2[:len(ovf)].cpu().numpy()]
+                              16384, 0, fetch)
+            vals[ovf] = fetch(v2[:len(ovf)]).astype(np.int32)
+            ovf = ovf[fetch(o2[:len(ovf)])]
         for j in ovf:
             vals[j] = fmops.bwt_sa(fm, off + int(j))
         out[off:off + m] = vals

@@ -23,7 +23,9 @@ big-budget device call, then by the host golden.
 
 Each machine is a Python loop over torch steps whose stop condition is
 read from the device every few steps (a step on finished lanes changes
-nothing, so the extra steps are no-ops). Scatters with a drop sentinel
+nothing, so the extra steps are no-ops). Every such read, and every
+copy of a result to the host, goes through the `fetch` argument
+(fm_torch.to_host by default; the batch aligner passes its watchdog). Scatters with a drop sentinel
 write into buffers with one spare trailing slot that absorbs every
 dropped index.
 """
@@ -36,7 +38,8 @@ import torch
 from ..index.fmindex import FMIndex
 from ..utils.opts import MemOpt
 from . import smem as smem_golden
-from .fm_torch import DeviceFM, occ4_batch, sa_batch, set_intv_batch
+from .fm_torch import (DeviceFM, occ4_batch, sa_batch, set_intv_batch,
+                       to_host)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -73,11 +76,11 @@ def _max_drop(n: int, idx, vals, dev) -> torch.Tensor:
     return buf[:n]
 
 
-def _run(step, s, done, iters: int):
-    """while it < iters and not done(s): s = step(s), with the condition
-    read every CHECK_EVERY steps."""
+def _run(step, s, running, iters: int, fetch):
+    """while it < iters and running(s): s = step(s), with the condition
+    (a 0-d bool tensor) read by `fetch` every CHECK_EVERY steps."""
     it = 0
-    while it < iters and not done(s):
+    while it < iters and fetch(running(s)):
         for _ in range(min(CHECK_EVERY, iters - it)):
             s = step(s)
         it += min(CHECK_EVERY, iters - it)
@@ -270,7 +273,7 @@ def _fresh(NL: int, NBc: int, dt, dev) -> dict:
 
 
 def _fwd_scan_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int,
-                      q_flat, read_id, qlen_l, mi, st0):
+                      q_flat, read_id, qlen_l, mi, st0, fetch):
     """Pass-2 forward scans (task mode: lanes arrive initialized in mode
     1/3; no pivot acquisition), recording break intervals."""
     NL = st0["mode"].shape[0]
@@ -282,15 +285,14 @@ def _fwd_scan_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int,
         ok = bwt_extend_dir_batch(dfm, s["ik"], back)
         return _fwd_post(NB, qlen_l, mi, True, s, ok, q_i)
 
-    out = _run(step, st0, lambda s: not bool((s["mode"] != 3).any()),
-               ITERS)
+    out = _run(step, st0, lambda s: (s["mode"] != 3).any(), ITERS, fetch)
     out["ovf"] = out["ovf"] | (out["mode"] != 3)
     return out
 
 
 def _p1p3_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int, read_id,
                   qlen_l, st1, q2, qlen2, NP3: int, min_seed_len,
-                  max_mem_intv, st3):
+                  max_mem_intv, st3, fetch):
     """Pass 1's forward scan and pass 3, fused into ONE loop: both are
     serial per-read scans of ~qlen steps over a shared batched
     bwt_extend, so their 2B lanes share one probe per step."""
@@ -322,15 +324,15 @@ def _p1p3_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int, read_id,
         return s1, s3
 
     s1, s3 = _run(step, (st1, st3),
-                  lambda s: not bool(((s[0]["mode"] != 3)
-                                      | (s[1]["mode"] != 3)).any()), ITERS)
+                  lambda s: ((s[0]["mode"] != 3) | (s[1]["mode"] != 3)).any(),
+                  ITERS, fetch)
     s1["ovf"] = s1["ovf"] | (s1["mode"] != 3)
     mems3 = _view3(s3["mems"], (B, 4, NP3))
     return s1, (mems3, s3["n_mem"], s3["ovf"] | (s3["mode"] != 3))
 
 
 def _bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
-                      mi, alive0, CS: int):
+                      mi, alive0, CS: int, fetch):
     """Recorded break intervals walk backward via a persistent WORKLIST
     of A active lanes over the front-packed break queue: a lane whose
     walk dies writes its result and pulls the next queue entry, so the
@@ -403,7 +405,7 @@ def _bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
         return dict(qi=qi, act=walk | refill, bst=bst, i_b=i_b, rid=rid,
                     mi=mi_a, nxt=s["nxt"] + cs[-1])
 
-    out = _run(step, st0, lambda s: not bool(s["act"].any()), ITB)
+    out = _run(step, st0, lambda s: s["act"].any(), ITB, fetch)
     # iteration budget blown (never for the ITB above): record as death
     write_dead(out, out["act"])
     return r_out[:M], bflat[:3 * M].reshape(3, M).T.to(dt)
@@ -451,7 +453,7 @@ SORT_BWD_POOL = True  # walk-length-sorted backward pools
 
 
 def _smem_pass_post(dfm: DeviceFM, L: int, NB: int, q_flat, read_id,
-                    mi, min_seed_len, s, PBUD: int, CS: int):
+                    mi, min_seed_len, s, PBUD: int, CS: int, fetch):
     """Backward walks + cohort emission for a finished forward scan.
 
     The walk runs over a batch-global pool of PBUD lanes packed from the
@@ -491,7 +493,7 @@ def _smem_pass_post(dfm: DeviceFM, L: int, NB: int, q_flat, read_id,
     rid_b = read_id[lane_nl]
     mi_b = mi[lane_nl]
     r_l, bst_l = _bwd_walk_machine(dfm, L, q_flat, rid_b, bst0, i_b0,
-                                   mi_b, lane_ok, CS)
+                                   mi_b, lane_ok, CS, fetch)
     # scatter-back = gather through dst (index PBUD -> sentinel row)
     r_pad = torch.cat([r_l, torch.full((1,), BIG32, dtype=I32,
                                        device=dev)])
@@ -545,7 +547,8 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
                         min_seed_len: int, split_len: int, split_width: int,
                         max_mem_intv: int, max_occ: int, pack_H: int = 0,
                         big: bool = False, p2x: int = 1,
-                        sa_intv_s: int = 0) -> tuple[torch.Tensor, ...]:
+                        sa_intv_s: int = 0, fetch=to_host
+                        ) -> tuple[torch.Tensor, ...]:
     """All seeding intervals for a batch of reads (mem_collect_intv,
     bwa/bwamem.c:120-168), sorted by info.
 
@@ -553,7 +556,8 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
     Returns (mems [B, 4, MAXM] = (k, l, s, info) rows in the coordinate
     dtype, n_mem int32[B], ovf int32[B] OVF_* bitmask, occ_sa (the seeds'
     SA values, a batch-global ragged pool), occ_total int32[B]) and, with
-    pack_H, the one-array bundle of _pack_ragged."""
+    pack_H, the one-array bundle of _pack_ragged. The machines read their
+    stop conditions with `fetch`."""
     dev = q.device
     q = q.to(I32)
     B = q.shape[0]
@@ -587,10 +591,10 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
                ovf=torch.zeros(B, dtype=torch.bool, device=dev))
     s1, (mems3, n3, ovf3) = _p1p3_machine(
         dfm, L, NB, ITERS, rid, qlen, _fresh(B, NB, dt, dev), q, qlen,
-        NP3, min_seed_len, max_mem_intv, st3)
+        NP3, min_seed_len, max_mem_intv, st3, fetch)
     mems1, n1, ovf_f1, ovf_p1 = _smem_pass_post(
         dfm, L, NB, q_flat, rid, torch.ones(B, dtype=dt, device=dev),
-        min_seed_len, s1, PBUD1, CS)
+        min_seed_len, s1, PBUD1, CS, fetch)
     ovf = ovf_f1.to(I32) * OVF_P1_FWD + ovf_p1.to(I32) * OVF_P1_POOL
 
     # pass 2: re-seed long low-occ SMEMs from the middle, min_intv = s+1,
@@ -614,9 +618,9 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
                ik=set_intv_batch(dfm, qx.clamp(0, 3)), ik_info=tx + 1)
     qlen2 = qlen[rid2.long()]
     s2 = _fwd_scan_machine(dfm, L, NB2, ITERS, q_flat, rid2, qlen2, tmi,
-                           st2)
+                           st2, fetch)
     mems2l, n2l, ovf2f, ovf2p = _smem_pass_post(
-        dfm, L, NB2, q_flat, rid2, tmi, min_seed_len, s2, PBUD2, CS)
+        dfm, L, NB2, q_flat, rid2, tmi, min_seed_len, s2, PBUD2, CS, fetch)
     ovf2l = ovf2f.to(I32) * OVF_P2_FWD + ovf2p.to(I32) * OVF_P2_POOL
     ovf = ovf | _max_drop(B, rid2, torch.where(tv, ovf2l, 0), dev)
     # merge task-lane emissions per read: lanes are read-major and
@@ -701,7 +705,7 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
             # (occ_total must NOT change: the host derives segment
             # offsets from the totals)
             vals, ovf_w = sa_batch(dfm, torch.where(ok, rows, 0), 256,
-                                   sa_intv_s)
+                                   sa_intv_s, fetch)
             bad = _max_drop(B, torch.where(ok & ovf_w, seg // MAXM, B),
                             torch.ones(CAPO, dtype=I32, device=dev), dev)
             ovf = ovf | bad * OVF_SA
@@ -780,11 +784,6 @@ SEED_HEAD = 32  # leading mem slots of the dense view
 FORCE_WIDE = False
 
 
-def _np(t) -> np.ndarray:
-    """Device -> host copy (blocks until the producing work is done)."""
-    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
-
-
 def _opt_params(opt: MemOpt) -> tuple:
     return (int(opt.min_seed_len), int(opt.split_len),
             int(opt.split_width), int(opt.max_mem_intv), int(opt.max_occ))
@@ -797,10 +796,12 @@ def _narrow(fm: FMIndex, L: int) -> bool:
 def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
                   reads: list[np.ndarray], L: int = 256,
                   MAXB: int = 64, MAXM: int = 128,
-                  iters_factor: int = 16, padded=None) -> dict:
-    """Run the device SMEM machine for a batch; returns a handle for
-    seed_collect_batch. The padded read batch (device tensors) stays in
-    the handle so the extension stage can address it."""
+                  iters_factor: int = 16, padded=None,
+                  fetch=to_host) -> dict:
+    """Run the device SMEM machine for a batch (its stop reads through
+    `fetch`); returns a handle for seed_collect_batch. The padded read
+    batch (device tensors) stays in the handle so the extension stage
+    can address it."""
     if padded is not None:
         q_dev, qlen_dev = padded
     else:
@@ -820,7 +821,7 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
     out = collect_intv_device(
         dfm.narrow() if narrow else dfm, L, MAXB, MAXM, L * iters_factor,
         q_dev, qlen_dev, *params, pack_H=H if narrow else 0, p2x=p2x,
-        sa_intv_s=sa_s)
+        sa_intv_s=sa_s, fetch=fetch)
     h = dict(reads=reads, opt=opt, fm=fm, dfm=dfm, L=L, MAXB=MAXB,
              MAXM=MAXM, iters=L * iters_factor, q_dev=q_dev, mems=out[0],
              p2x=p2x)
@@ -835,10 +836,12 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
     return h
 
 
-def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
-    """Finish a seed_dispatch as an array-native IntvBatch. Overflowed
-    reads are redone by the big-budget device machine, then by the
-    golden implementation, and spliced in."""
+def seed_collect_batch(handle: dict, fetch=to_host
+                       ) -> smem_golden.IntvBatch:
+    """Finish a seed_dispatch as an array-native IntvBatch, reading the
+    device with `fetch`. Overflowed reads are redone by the big-budget
+    device machine, then by the golden implementation, and spliced
+    in."""
     opt, fm, reads = handle["opt"], handle["fm"], handle["reads"]
     L, MAXM = handle["L"], handle["MAXM"]
     n = len(reads)
@@ -847,7 +850,7 @@ def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
     flats = None            # (k, l, s, st, en) flat arrays
     occ_flat = None
     if packed is not None:
-        pk = _np(packed)
+        pk = fetch(packed)
         Bp = handle["q_dev"].shape[0]
         CAPM = CAPM_PER * Bp
         CAPO = (CAPO_PER if handle["dfm"].sa_dense is not None
@@ -871,7 +874,7 @@ def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
         # batch total overflows (per-read fit check below)
         occ_flat = pk[o + 3 * CAPM:o + 3 * CAPM + CAPO]
     else:
-        meta = _np(handle["meta"])
+        meta = fetch(handle["meta"])
         n_mem = meta[0]
         ovf = meta[1] != 0
         occ_total = meta[2]
@@ -883,9 +886,9 @@ def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
             width <<= 1
         width = min(width, MAXM)
         if packed is None and used <= H:
-            mems = _np(handle["head"])
+            mems = fetch(handle["head"])
         else:
-            mems = _np(handle["mems"][:, :, :width])
+            mems = fetch(handle["mems"][:, :, :width])
         W = mems.shape[2]
         ish = INFO_SHIFT[mems.dtype]      # narrow machine packs start<<16
         counts = np.minimum(n_mem[:n].astype(np.int64), W)
@@ -930,7 +933,7 @@ def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
                 if occ_np is None:
                     dev = handle["occ_sa_dev"]
                     width = min(int(ocnt.sum()), dev.shape[0])
-                    occ_np = _np(dev[:width])
+                    occ_np = fetch(dev[:width])
                 if baseo[b] + t <= len(occ_np):
                     sa_vals[b] = occ_np[baseo[b]:baseo[b] + t]
     handle["sa_vals"] = sa_vals
@@ -951,7 +954,7 @@ def seed_collect_batch(handle: dict) -> smem_golden.IntvBatch:
         repl: dict = {}   # read -> {name: replacement array}
         todo = [int(b) for b in np.nonzero(redo)[0]]
         if DEVICE_REDO and handle.get("dfm") is not None:
-            todo = _device_redo(handle, todo, repl, counts, sa_vals)
+            todo = _device_redo(handle, todo, repl, counts, sa_vals, fetch)
         for b in todo:
             iv = smem_golden.collect_intv(opt, fm, reads[b])
             rb = smem_golden.IntvBatch.from_lists([iv])
@@ -997,8 +1000,8 @@ _ADAPT: dict[int, int] = {}
 ADAPT_THRESH = 0.05
 
 
-def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals
-                 ) -> list:
+def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
+                 fetch=to_host) -> list:
     """Re-run budget-overflowed reads with the big-budget device machine
     and record replacement segments in ``repl``. Returns the residue
     that must still go to the host golden."""
@@ -1021,8 +1024,8 @@ def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals
             d, L, MAXB, MAXM, handle["iters"],
             torch.as_tensor(q, device=dfm.device),
             torch.as_tensor(qlen, device=dfm.device), *params, pack_H=0,
-            big=True, sa_intv_s=sa_s)
-        mems, n_mem, ovf, occ_sa, occ_total = (_np(o) for o in out)
+            big=True, sa_intv_s=sa_s, fetch=fetch)
+        mems, n_mem, ovf, occ_sa, occ_total = (fetch(o) for o in out)
         ish = INFO_SHIFT[mems.dtype]
         ocnt_r = np.where(occ_total >= 0, occ_total, 0)
         baseo_r = np.cumsum(ocnt_r, dtype=np.int64) - ocnt_r
@@ -1045,17 +1048,18 @@ def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals
     return rest
 
 
-def seed_collect(handle: dict) -> list[list[smem_golden.Intv]]:
+def seed_collect(handle: dict, fetch=to_host
+                 ) -> list[list[smem_golden.Intv]]:
     """Finish a seed_dispatch as per-read Intv lists (the Python-object
     view of seed_collect_batch). The ragged bundle elides x1; this view
     restores it from the device-resident dense mems."""
-    batch = seed_collect_batch(handle)
+    batch = seed_collect_batch(handle, fetch)
     info = handle.pop("_x1_elided", None)
     if info is not None:
         n_mem, redo = info
         used = int(n_mem.max()) if len(n_mem) else 0
         width = min(max(used, 1), handle["MAXM"])
-        mems = _np(handle["mems"][:, :, :width])
+        mems = fetch(handle["mems"][:, :, :width])
         off = batch.iv_off
         x1 = batch.x1.copy()
         for r in np.nonzero(~redo)[0]:

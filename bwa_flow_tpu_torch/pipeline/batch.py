@@ -20,11 +20,23 @@ batch on each device's index replica (parallel/mesh.py); the host
 stages see the whole batch in read order, with global read ids.
 
 Tasks too large for the device shapes run on the host scalar kernel
-inline. A device error, on any shard, propagates and fails the run.
+inline. A device error, on any shard, propagates and fails the run. So
+do three checks the JAX package runs, which here raise where it
+degrades to the host for the rest of the run:
+
+  - the hang watchdog: every read of the device from the host goes
+    through BatchAligner.fetch (every upload through put), which waits
+    for the device's queued work with a deadline (device_timeout) and
+    raises TimeoutError past it;
+  - the structural check of every wave row against its task's shape
+    (bad_rows), always on: DeviceResultError;
+  - with validate_every, a sample of every Nth batch's reads against the
+    golden model (check_against_golden): DeviceResultError.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -41,13 +53,113 @@ from ..ops import pe as peops
 from ..ops import region as regionops
 from ..ops import extend_cuda, smem_torch
 from ..ops.chain2aln_torch import DescTaskBuffer
-from ..ops.fm_torch import DeviceFM, sa_batch
+from ..ops.fm_torch import DeviceFM, sa_batch, to_host
 from ..ops.probe_layout import sa_probe_layout
 from ..ops.smem import IntvBatch
 from ..parallel.mesh import replicate_fm, run_shards
 from ..utils.opts import MEM_F_PRIMARY5, MemOpt
 
 SA_CHUNK = 65536   # SA probes per device LF-walk call
+# the watchdog's poll: for SPIN_S it checks again at once, yielding the
+# core and the interpreter lock between checks (a timed sleep would wake
+# late on a busy host); past that it sleeps NAP_S between checks
+SPIN_S = 0.1
+NAP_S = 1e-3
+# the fields of a region that validation compares with the golden model
+REG_FIELDS = ("rb", "re", "qb", "qe", "rid", "score", "truesc", "w",
+              "seedcov")
+# the 12 fields of a wave row (seed_extend_desc_batch's output)
+ROW_FIELDS = ("lscore", "lqle", "ltle", "lgtle", "lgscore", "lmax_off",
+              "rscore", "rqle", "rtle", "rgtle", "rgscore", "rmax_off")
+
+
+class DeviceResultError(RuntimeError):
+    """A device result that cannot be right: a wave row outside its
+    task's range, or a validated read whose regions differ from the
+    golden model's. The run fails; the JAX package degrades to the host
+    instead."""
+
+
+def wait_ready(ready, timeout: float) -> None:
+    """Poll ready() until it is true; raise TimeoutError once `timeout`
+    seconds have passed (the reference's fpgaHangError, SWTask.cpp:
+    115-121). The blocked device work cannot be cancelled: the caller's
+    run fails."""
+    t0 = time.monotonic()
+    while not ready():
+        dt = time.monotonic() - t0
+        if dt >= timeout:
+            raise TimeoutError(f"device work did not finish within the "
+                               f"device timeout of {timeout:g} s (hung "
+                               "device)")
+        if dt < SPIN_S:
+            os.sched_yield()
+        else:
+            time.sleep(NAP_S)
+
+
+def _done() -> bool:
+    return True
+
+
+def bad_rows(desc: np.ndarray, rows: np.ndarray, max_mat: int):
+    """The structural check of one wave: row_ok of the JAX package's
+    native wave driver (native/_wave.cpp:508-545) over every lane at
+    once. desc int64[11, n] holds the wave's task descriptors
+    (DescTaskBuffer), rows int[12, n] its results. A side with work must
+    have qle in [0, qlen], tle and gtle in [0, tlen], score in [h0, h0 +
+    qlen * max_mat] and max_off in [0, max(qlen, tlen)]; a side without
+    work must be exactly (h0, 0, 0). The right side starts from the
+    row's left score, or, in a right-only retry (skip_left), from the
+    saved left score that the descriptor carries as h0; such a row's
+    left half is not checked. Returns (lane, field, (qlen, tlen, h0)) of
+    the first bad value in lane order, or None."""
+    qbeg, slen, l_query, rbeg, rmax0, rmax1, h0 = desc[1:8].astype(np.int64)
+    skip = desc[10] != 0
+    r = rows.astype(np.int64)
+    qlen_r = l_query - (qbeg + slen)
+    sides = ((0, qbeg, rbeg - rmax0, h0, ~skip & (qbeg > 0),
+              ~skip & (qbeg == 0)),
+             (6, qlen_r, rmax1 - (rbeg + slen), np.where(skip, h0, r[0]),
+              qlen_r != 0, qlen_r == 0))
+    masks = []
+    for off, qlen, tlen, h, work, idle in sides:
+        sc, qle, tle, gtle, moff = r[off], r[off + 1], r[off + 2], \
+            r[off + 3], r[off + 5]
+        masks += [
+            (off, work & ((sc < h) | (sc > h + qlen * max_mat))
+             | idle & (sc != h)),
+            (off + 1, work & ((qle < 0) | (qle > qlen)) | idle & (qle != 0)),
+            (off + 2, work & ((tle < 0) | (tle > tlen)) | idle & (tle != 0)),
+            (off + 3, work & ((gtle < 0) | (gtle > tlen))),
+            (off + 5, work & ((moff < 0) | (moff > np.maximum(qlen, tlen))))]
+    bad = np.stack([m for _, m in masks])
+    lanes = np.nonzero(bad.any(axis=0))[0]
+    if not len(lanes):
+        return None
+    j = int(lanes[0])
+    field = next(f for f, m in masks if m[j])
+    side = sides[0] if field < 6 else sides[1]
+    return j, field, (int(side[1][j]), int(side[2][j]), int(side[3][j]))
+
+
+def check_against_golden(opt: MemOpt, fm: FMIndex, seq, got, what: str
+                         ) -> None:
+    """Raise DeviceResultError when `got`, one read's deduplicated
+    regions from the device path, differs from the golden model's
+    (mem_align1_core) in any of REG_FIELDS; the message names `what`
+    (the read and its batch) and each differing field with both
+    values."""
+    want = golden.mem_align1_core(opt, fm, seq)
+    diffs = [] if len(got) == len(want) else [
+        f"regions: device {len(got)}, golden {len(want)}"]
+    for j, (a, b) in enumerate(zip(got, want)):
+        diffs += [f"region {j} {f}: device {getattr(a, f)}, golden "
+                  f"{getattr(b, f)}" for f in REG_FIELDS
+                  if getattr(a, f) != getattr(b, f)]
+    if diffs:
+        raise DeviceResultError(f"device result differs from the golden "
+                                f"model on {what}: {'; '.join(diffs)}")
 
 
 def chain_read(opt: MemOpt, fm: FMIndex, seq, intvs, lut: dict) -> list:
@@ -98,16 +210,27 @@ class BatchAligner:
     resident there, and runs the extension waves of its reads there,
     two wave streams a shard (the JAX package's _extend_waves_sharded).
     SA probe chunks go round-robin over the replicas. None, or one
-    device, is the one-device path: one shard."""
+    device, is the one-device path: one shard.
+
+    `device_timeout` (seconds; 0 or less disables) bounds every wait for
+    the device (fetch, put): past it, TimeoutError. `validate_every` > 0
+    checks `validate_sample` reads of every Nth batch of align_regs
+    against the golden model (AlignPipeline runs its own sample); a
+    mismatch raises DeviceResultError."""
 
     def __init__(self, opt: MemOpt, fm: FMIndex, smem_L: int = 160,
                  wave_cap: int = 4096, qmax: int = 160, tmax: int = 512,
-                 device=None, devices=None):
+                 device=None, devices=None, validate_every: int = 0,
+                 validate_sample: int = 2, device_timeout: float = 300.0):
         devs = [resolve_device(d) for d in (devices or [device])]
         self.device = devs[0]
         self.opt = opt
         self.fm = fm
-        self.dfm = DeviceFM.from_host(fm, self.device)
+        self.validate_every = validate_every
+        self.validate_sample = validate_sample
+        self.device_timeout = device_timeout
+        self._batch_no = 0
+        self.dfm = DeviceFM.from_host(fm, self.device, fetch=self.fetch)
         self.smem_L = smem_L
         self.qmax, self.tmax = qmax, tmax
         # one shard a device: its index replica and its two wave buffers
@@ -123,7 +246,7 @@ class BatchAligner:
         self._stats_lock = threading.Lock()
         self.stats = {"reads": 0, "sa_host_redo": 0,
                       "ext_tasks_device": 0, "ext_tasks_host": 0,
-                      "waves": 0, "band_retries": 0,
+                      "waves": 0, "band_retries": 0, "validations": 0,
                       "seed_batches": 0, "seed_s": 0.0,
                       "shards": [dict(device=str(d), seed_s=0.0, waves=0,
                                       ext_tasks_device=0, launches=0,
@@ -134,6 +257,42 @@ class BatchAligner:
         with self._stats_lock:
             st = self.stats if shard is None else self.stats["shards"][shard]
             st[name] = st.get(name, 0) + delta
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _ready(device: torch.device):
+        """The check that `device`'s current stream, the one the host
+        copies run on, has finished what is queued on it now: a CUDA
+        event recorded there. The CPU queues nothing. Tests replace it
+        to inject a stall."""
+        if device.type != "cuda":
+            return _done
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        return ev.query
+
+    def wait(self, device) -> None:
+        """Wait for the work queued on `device` under the watchdog:
+        TimeoutError after device_timeout seconds. With device_timeout
+        <= 0 this returns at once, and the copy that follows waits with
+        no deadline."""
+        if self.device_timeout > 0:
+            wait_ready(self._ready(torch.device(device)),
+                       self.device_timeout)
+
+    def fetch(self, t) -> np.ndarray:
+        """Device -> host copy behind the watchdog; every read of the
+        device on a batch's path goes through here."""
+        if isinstance(t, torch.Tensor):
+            self.wait(t.device)
+        return to_host(t)
+
+    def put(self, a, device) -> torch.Tensor:
+        """Host -> device copy behind the watchdog: a copy from pageable
+        memory waits for the stream's earlier work, so the watchdog
+        waits first."""
+        self.wait(device)
+        return torch.as_tensor(a, device=device)
 
     # ------------------------------------------------------------------
     def resolve_sa_flat(self, all_intvs, seed_handle: dict | None = None):
@@ -178,10 +337,10 @@ class BatchAligner:
                 width <<= 1
             pad = np.zeros(width, dtype=pdt)
             pad[:len(chunk)] = chunk
-            sa_t, ovf_t = sa_batch(dfm_sa, torch.as_tensor(
-                pad, device=dfm_sa.device), 256, int(self.fm.sa_intv))
-            vals = sa_t[:len(chunk)].cpu().numpy().copy()
-            ovf = ovf_t[:len(chunk)].cpu().numpy()
+            sa_t, ovf_t = sa_batch(dfm_sa, self.put(pad, dfm_sa.device),
+                                   256, int(self.fm.sa_intv), self.fetch)
+            vals = self.fetch(sa_t[:len(chunk)]).copy()
+            ovf = self.fetch(ovf_t[:len(chunk)])
             for j in np.nonzero(ovf)[0]:
                 vals[j] = fmops.bwt_sa(self.fm, int(chunk[j]))
                 self._stat("sa_host_redo")
@@ -206,12 +365,13 @@ class BatchAligner:
             lo, hi = bounds[k]
             sh = self.shards[k]
             q, qlen = smem_torch.pad_reads(seqs[lo:hi], self.smem_L)
-            q_dev = torch.as_tensor(q, device=sh["device"])
-            qlen_dev = torch.as_tensor(qlen, device=sh["device"])
+            q_dev = self.put(q, sh["device"])
+            qlen_dev = self.put(qlen, sh["device"])
             t0 = time.perf_counter()
             sub = smem_torch.seed_dispatch(self.opt, self.fm, sh["dfm"],
                                            seqs[lo:hi], L=self.smem_L,
-                                           padded=(q_dev, qlen_dev))
+                                           padded=(q_dev, qlen_dev),
+                                           fetch=self.fetch)
             self._stat("seed_s", time.perf_counter() - t0, shard=k)
             return q_dev, sub
 
@@ -232,7 +392,7 @@ class BatchAligner:
 
         def collect(k):
             t0 = time.perf_counter()
-            batch = smem_torch.seed_collect_batch(parts[k][1])
+            batch = smem_torch.seed_collect_batch(parts[k][1], self.fetch)
             self._stat("seed_s", time.perf_counter() - t0, shard=k)
             return batch
 
@@ -259,19 +419,40 @@ class BatchAligner:
         return [chain_read(self.opt, self.fm, s, iv, lut)
                 for s, iv, lut in zip(seqs, all_intvs, luts)]
 
-    def align_regs(self, seqs: list[np.ndarray]) -> list:
+    def align_regs(self, seqs: list[np.ndarray], names=None) -> list:
         """Seed + chain + extend + dedup for a batch of encoded reads;
-        returns per-read AlnReg lists (mem_align1_core over a batch)."""
+        returns per-read AlnReg lists (mem_align1_core over a batch).
+        Every validate_every-th batch is validated (_validate); `names`,
+        the reads' names, go into the messages of DeviceResultError."""
         opt, fm = self.opt, self.fm
+        self._batch_no += 1
         h = self.seeds_dispatch(seqs)
         all_intvs = self.seeds_collect(h)
         sa_flat = self.resolve_sa_flat(all_intvs, h)
         all_chains = self.chain_reads(seqs, all_intvs, sa_flat)
-        all_regs = self.extend_waves(seqs, all_chains)
-        return [dedup_regs(opt, fm, seq, regs)
-                for seq, regs in zip(seqs, all_regs)]
+        all_regs = self.extend_waves(seqs, all_chains, names)
+        final = [dedup_regs(opt, fm, seq, regs)
+                 for seq, regs in zip(seqs, all_regs)]
+        if self.validate_every and self._batch_no % self.validate_every == 0:
+            self._validate(seqs, final, names)
+        return final
 
-    def extend_waves(self, seqs: list[np.ndarray], all_chains) -> list:
+    def _validate(self, seqs, got_regs, names=None) -> None:
+        """Cross-check an evenly spaced sample of validate_sample reads
+        against the golden model, the reference's FPGA wrong-result
+        detector (FPGAPipeline.cpp:29-130); a mismatch raises
+        DeviceResultError, where the JAX package degrades to the
+        host."""
+        self._stat("validations")
+        n = len(seqs)
+        for i in range(0, n, max(1, n // max(1, self.validate_sample))):
+            name = f" ({names[i]})" if names else ""
+            check_against_golden(self.opt, self.fm, seqs[i], got_regs[i],
+                                 f"read {i}{name} of batch "
+                                 f"{self._batch_no}")
+
+    def extend_waves(self, seqs: list[np.ndarray], all_chains,
+                     names=None) -> list:
         """Stage 4: cross-read wave extension on the device (no dedup).
 
         Each shard's reads form waves on the shard's device, addressed by
@@ -283,8 +464,14 @@ class BatchAligner:
         doubling (bwamem.c:737-744) is driven from here: a task whose
         max_off crossed the threshold is re-enqueued into a later wave
         with the doubled band (stage 1 = redo left@2w+right, stage 2 =
-        right-only@2w with the saved left half)."""
+        right-only@2w with the saved left half).
+
+        Every wave row passes the structural check (bad_rows) before it
+        is applied; a bad one raises DeviceResultError naming the read
+        (its index in the batch, and its name from `names`) and the
+        field."""
         opt, fm = self.opt, self.fm
+        max_mat = int(opt.mat.max())
         all_regs = [[] for _ in seqs]
         dev_shards = self._dev_shards or [(0, len(seqs), None)]
         S = len(dev_shards)
@@ -397,8 +584,11 @@ class BatchAligner:
             if not slots:
                 return None
             busy.update(slots)
+            desc = buf.desc[:, :len(slots)].copy()
             n0 = (extend_cuda.n_launches, extend_cuda.n_launches16)
             with tracer.span("wave.dispatch"):
+                # the wave's upload waits for the stream: watch it
+                self.wait(self.shards[k]["device"])
                 out = buf.run_async(opt, self.shards[k]["dfm"],
                                     dev_shards[k][2], self.smem_L)
             # waves launch from this thread only, so the counts' change
@@ -410,13 +600,23 @@ class BatchAligner:
             self._stat("ext_tasks_device", len(slots))
             self._stat("waves", shard=k)
             self._stat("ext_tasks_device", len(slots), shard=k)
-            return slots, out
+            return slots, desc, out
 
         def apply(entry):
-            slots, out = entry
+            slots, desc, out = entry
             with tracer.span("wave.fetch"):
-                rows = out.cpu().numpy().T.tolist()
+                rows = self.fetch(out)
             with tracer.span("wave.apply"):
+                bad = bad_rows(desc, rows, max_mat)
+                if bad is not None:
+                    j, f, (qlen, tlen, h0) = bad
+                    ridx = slots[j]
+                    name = f" ({names[ridx]})" if names else ""
+                    raise DeviceResultError(
+                        f"wave row of read {ridx}{name}: {ROW_FIELDS[f]} "
+                        f"= {int(rows[f, j])} is outside what its task "
+                        f"allows (qlen {qlen}, tlen {tlen}, h0 {h0})")
+                rows = rows.T.tolist()
                 for i, ridx in enumerate(slots):
                     busy.discard(ridx)
                     handle(ridx, rows[i])
@@ -455,7 +655,8 @@ class BatchAligner:
     def align_se(self, reads: list[Read], n_processed: int = 0,
                  rg_id: str = "") -> None:
         """Batched single-end alignment: fills each read's .sam."""
-        all_regs = self.align_regs([s.seq for s in reads])
+        all_regs = self.align_regs([s.seq for s in reads],
+                                   [s.name for s in reads])
         for i, (s, regs) in enumerate(zip(reads, all_regs)):
             se_sam(self.opt, self.fm, s, regs, n_processed + i, rg_id)
 
@@ -464,7 +665,8 @@ class BatchAligner:
         """Batched paired-end alignment over interleaved reads: pestat
         of the batch unless `pes0` is given, then pairing and SAM."""
         opt, fm = self.opt, self.fm
-        all_regs = self.align_regs([s.seq for s in reads])
+        all_regs = self.align_regs([s.seq for s in reads],
+                                   [s.name for s in reads])
         pes = pes0 if pes0 is not None else peops.mem_pestat(
             opt, fm.bns.l_pac, all_regs)
         for i in range(len(reads) >> 1):

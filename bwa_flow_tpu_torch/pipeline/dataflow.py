@@ -20,10 +20,16 @@ emission still see whole batches in read order.
 The pool is created before the device upload of the index and its
 replicas. Workers only run NumPy host stages (mate rescue included:
 ksw_align2 is host code) and never touch torch.cuda.
+
+With validate_every > 0, a sample of every Nth batch's regions is held
+to the golden model before the batch's tail starts (_validate_sample); a
+mismatch raises DeviceResultError and the run fails, as does a
+TimeoutError of the batch aligner's watchdog (device_timeout).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import multiprocessing as mp
 import threading
@@ -32,7 +38,8 @@ from typing import Callable, Iterable
 from ..io.sam import Read
 from ..ops import pe as peops
 from ..utils.opts import MemOpt
-from .batch import BatchAligner, chain_read, dedup_regs, se_sam
+from .batch import (BatchAligner, chain_read, check_against_golden,
+                    dedup_regs, se_sam)
 
 _G: dict = {}
 
@@ -93,12 +100,16 @@ class AlignPipeline:
     batches hold mates interleaved; `pes0` (the -I option) replaces the
     per-batch insert-size estimate. `devices`, a list of torch devices,
     shards every batch over them (BatchAligner); else the run is on
-    `device`."""
+    `device`. validate_every, validate_sample and device_timeout go to
+    the BatchAligner (one device, every shard, every rank alike);
+    validation runs here, on each validated batch's regions before its
+    tail."""
 
     def __init__(self, opt: MemOpt, fm, paired: bool = False,
                  n_workers: int = 0, rg_id: str = "", pes0=None,
                  aligner_kw: dict | None = None, mp_context: str = "fork",
-                 device=None, devices=None):
+                 device=None, devices=None, validate_every: int = 0,
+                 validate_sample: int = 2, device_timeout: float = 300.0):
         self.opt = opt
         self.fm = fm
         self.paired = paired
@@ -115,6 +126,9 @@ class AlignPipeline:
                                  initargs=(opt, fm, rg_id))
         try:
             self.ba = BatchAligner(opt, fm, device=device, devices=devices,
+                                   validate_every=validate_every,
+                                   validate_sample=validate_sample,
+                                   device_timeout=device_timeout,
                                    **(aligner_kw or {}))
         except BaseException:
             self.close()
@@ -224,7 +238,8 @@ class AlignPipeline:
             with tracer.span("chain"):
                 chains = self._chains(seqs, intvs, sa_flat)
             with tracer.span("extend_waves"):
-                regs = self.ba.extend_waves(seqs, chains)
+                regs = self.ba.extend_waves(seqs, chains,
+                                            [r.name for r in cur])
             prev = dict(reads=cur, regs=regs)
             n_processed += len(cur)
             cur, cur_h = nxt, nxt_h
@@ -235,9 +250,33 @@ class AlignPipeline:
                 emit(pending())
         return n_processed
 
+    def _validate_sample(self, batch, regs) -> None:
+        """Cross-check an evenly spaced sample of validate_sample reads of
+        a batch against the golden model, on their pre-dedup device
+        regions deduplicated here (the JAX package's _validate_sample,
+        the reference's FPGA wrong-result detector,
+        FPGAPipeline.cpp:29-130). A mismatch raises DeviceResultError
+        naming the read, the fields and the batch."""
+        ba = self.ba
+        ba._stat("validations")
+        n = len(batch)
+        for i in range(0, n, max(1, n // max(1, ba.validate_sample))):
+            r = batch[i]
+            got = dedup_regs(self.opt, self.fm, r.seq,
+                             copy.deepcopy(regs[i]))
+            check_against_golden(self.opt, self.fm, r.seq, got,
+                                 f"read {r.id} ({r.name}) of batch "
+                                 f"{ba._batch_no}")
+
     def _finish_batch(self, prev, pending, emit):
-        """Emit the batch before `prev` and start `prev`'s tail."""
+        """Validate `prev` every validate_every batches, emit the batch
+        before it and start `prev`'s tail."""
         from ..utils.trace import GLOBAL as tracer
+        ba = self.ba
+        if ba.validate_every:
+            ba._batch_no += 1
+            if ba._batch_no % ba.validate_every == 0:
+                self._validate_sample(prev["reads"], prev["regs"])
         if pending is not None:
             with tracer.span("emit_wait"):
                 emit(pending())

@@ -71,7 +71,21 @@ Phases:
      3's single-end run over the shards through the CLI's _mem: every
      shard must have run waves on the int32 kernel, and the records
      must equal phase 3's full.sam byte for byte.
-  9. one JSON line describing the kernels (ms, plain_ms and bound_ms at
+  9. the paths no earlier phase runs, and the checks that make a run
+     fail: the first 2048 of phase 3's reads on the wide int64 seed
+     machine (FORCE_WIDE) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
+     the fused LF walk), records equal to the default path's in the same
+     phase; -I 400,40 on phase 4's pairs (int16 kernel): 256 pairs equal
+     to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
+     phase 3's reads (SAM == full.sam, one validation a batch), the same
+     run with the watchdog off (--device-timeout 0) and on, in turns (its
+     cost, beside phase 3), one lane's score off by one (the validation
+     must name its read), qle = -3 with validation off (the structural
+     check), and a
+     ~10 s spin kernel queued before a wave's fetch under
+     --device-timeout 2: TimeoutError within 2-5 s in process, and a CLI
+     subprocess that must exit non-zero.
+ 10. one JSON line describing the kernels (ms, plain_ms and bound_ms at
      the path's mean wave; *_b4096 at B=4096; launches on each path),
      the device line, and as the last line {"ok": true, "device":
      {...}}.
@@ -107,6 +121,11 @@ INSERT_MEAN, INSERT_SD = 400, 40
 RANK_BATCH = 1024            # reads a work-queue batch in phase 7
 RANK_TIMEOUT = 600           # seconds a rank of phase 7 may take
 LD_SHARDS = 2                # shards of phase 8's one process
+P9_READS = 2048              # reads of phase 9's wide / no-dense-SA runs
+P9_PAIRS = 2048              # pairs of phase 9's -I share check
+STALL_S = 10                 # seconds phase 9's spin kernel holds the card
+STALL_TIMEOUT = 2            # --device-timeout of phase 9's stalls
+SPIN_HZ = 1.98e9             # the H100 SXM's boost clock: _sleep cycles/s
 QMAX, TMAX = 160, 512        # the wave shapes of the main path
 B_EXT = 4096
 # H100 SXM (NVIDIA data sheet): 3.35 TB/s HBM; int32 ops run on the 64
@@ -798,6 +817,7 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"ksw_extend2 launches {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB")
     print(f"[main] spans (host wall clock, s): {tracer.as_json()}")
+    spans = dict(tracer.totals)
 
     recs = _records(work / "full.sam")
     primary: dict = {}
@@ -837,7 +857,7 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"({len(dev_sam)} lines)")
     return dict(launches=launches, reads_per_s=N_READS / dt,
                 seed_s_per_batch=seed_per_batch, stats=st, peak=peak,
-                path=path["ksw_extend2"])
+                path=path["ksw_extend2"], wall_s=dt, spans=spans)
 
 
 def phase_pe_path(work: Path, device: str) -> dict:
@@ -1238,6 +1258,404 @@ def phase_local_devices(work: Path, device: str, n_shards: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 9
+
+def _head_fastq(src: Path, dst: Path, n: int) -> Path:
+    """The first n records of a FASTQ."""
+    with open(src) as f:
+        lines = [next(f) for _ in range(4 * n)]
+    dst.write_text("".join(lines))
+    return dst
+
+
+def _cli_run(tag: str, argv: list) -> dict:
+    """One in-process `mem` run through the CLI with the kernels' counts
+    and the spans set to 0 just before it; returns its wall s, launches
+    of each kernel, stats and spans."""
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
+
+    extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+    tracer.totals.clear()
+    tracer.counts.clear()
+    t0 = time.perf_counter()
+    assert cli.main(["mem"] + argv) == 0
+    dt = time.perf_counter() - t0
+    st = dict(cli.last_run_stats)
+    spans = {k: round(v, 3) for k, v in tracer.totals.items()}
+    out = dict(wall_s=dt, launches=extend_cuda.n_launches,
+               launches16=extend_cuda.n_launches16, stats=st, spans=spans,
+               seed_s_per_batch=st["seed_s"] / max(1, st["seed_batches"]))
+    print(f"[p9] {tag}: {dt:.2f} s; spans seed {spans.get('seed', 0)} s, "
+          f"sa {spans.get('sa', 0)} s, extend_waves "
+          f"{spans.get('extend_waves', 0)} s; seed_s "
+          f"{out['seed_s_per_batch']:.3f} s/batch over "
+          f"{st['seed_batches']} batches; sa_host_redo "
+          f"{st['sa_host_redo']}; ksw_extend2 launches {out['launches']}, "
+          f"ksw_extend2_i16 {out['launches16']}")
+    return out
+
+
+def _failing_run(argv: list):
+    """The error behind an in-process `mem` run's non-zero exit (the
+    SystemExit itself where it has no cause), or None when it exits 0."""
+    from bwa_flow_tpu_torch import cli
+    try:
+        cli.main(["mem"] + argv)
+    except SystemExit as e:
+        return e.__cause__ or e
+    return None
+
+
+def _inexact_reads(work: Path, dst: Path, n: int) -> Path:
+    """The first n reads of reads.fq that are no exact substring of the
+    genome on either strand (they carry a substitution, so each has an
+    extension to make)."""
+    text = "".join(l.strip() for l in open(work / "ref.fa")
+                   if not l.startswith(">"))
+    rc = text.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+    out = []
+    with open(work / "reads.fq") as f:
+        for rec in zip(f, f, f, f):
+            if rec[1].strip() not in text and rec[1].strip() not in rc:
+                out.append("".join(rec))
+                if len(out) == n:
+                    break
+    dst.write_text("".join(out))
+    return dst
+
+
+@contextlib.contextmanager
+def _recording(owner, attr: str, record):
+    """While the block runs, call record(args) before each call of
+    owner.attr; yields the list of what record returned."""
+    fn = getattr(owner, attr)
+    seen: list = []
+
+    def wrapped(*a, **k):
+        seen.append(record(a))
+        return fn(*a, **k)
+    setattr(owner, attr, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(owner, attr, fn)
+
+
+def phase_bypassed_paths(work: Path, device: str) -> dict:
+    """The device paths no earlier phase runs: the first P9_READS of
+    phase 3's reads on the wide int64 seed machine (FORCE_WIDE) and with
+    no dense SA (BWA_TPU_DENSE_SA_MAX=0: the seed program's fused LF
+    walk, and resolve_sa_flat's walks of the redone reads), against the
+    default path in the same phase; then -I 400,40 on phase 4's pairs
+    (int16 kernel): 256 pairs equal to --no-device, and the mapped and
+    proper shares of P9_PAIRS pairs."""
+    import torch
+
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.ops import smem_torch
+
+    ref = str(work / "ref.fa")
+    fq = str(_head_fastq(work / "reads.fq", work / "p9_reads.fq", P9_READS))
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
+    runs: dict = {}
+    dtype = (smem_torch, "collect_intv_device", lambda a: a[0].L2.dtype)
+    with _recording(*dtype) as dts:
+        runs["default"] = _cli_run("default", base + [
+            "-o", str(work / "p9_default.sam"), ref, fq])
+    smem_torch.FORCE_WIDE = True
+    try:
+        with _recording(*dtype) as dts_wide:
+            runs["wide"] = _cli_run("wide int64 machine", base + [
+                "-o", str(work / "p9_wide.sam"), ref, fq])
+    finally:
+        smem_torch.FORCE_WIDE = False
+    print(f"[p9] seed machines' coordinates: default {set(dts)}, wide "
+          f"{set(dts_wide)}")
+    if set(dts) != {torch.int32} or set(dts_wide) != {torch.int64}:
+        raise SystemExit("the default run's seed machines were not int32, "
+                         "or the wide run's not int64")
+    os.environ["BWA_TPU_DENSE_SA_MAX"] = "0"
+    try:
+        with timed_calls(smem_torch, "sa_batch") as walks:
+            runs["no_dense_sa"] = _cli_run("no dense SA", base + [
+                "-o", str(work / "p9_nodense.sam"), ref, fq])
+    finally:
+        del os.environ["BWA_TPU_DENSE_SA_MAX"]
+    print(f"[p9] no dense SA: the seed program's fused LF walk ran "
+          f"{walks['calls']} times, {walks['s']:.3f} s")
+    if not walks["calls"]:
+        raise SystemExit("the no-dense-SA run took no fused LF walk")
+    want = _body(work / "p9_default.sam")
+    for tag, name in (("wide", "p9_wide.sam"),
+                      ("no_dense_sa", "p9_nodense.sam")):
+        if _body(work / name) != want:
+            raise SystemExit(f"the {tag} run's SAM differs from the "
+                             "default path's")
+        if device == "cuda" and runs[tag]["launches"] <= 0:
+            raise SystemExit(f"the {tag} run launched no ksw_extend2")
+    print(f"[p9] wide, no-dense-SA and default SAMs equal ({len(want)} "
+          f"lines, @PG aside, {P9_READS} reads)")
+
+    # -I: pairing with a fixed insert size does not depend on the batch
+    pe = ["-I", f"{INSERT_MEAN},{INSERT_SD}", "--disable-markdup"]
+    sub = [str(work / "sub1.fq"), str(work / "sub2.fq")]
+    os.environ["BWA_TPU_EXTEND16"] = "1"
+    try:
+        runs["insert_sub"] = _cli_run(f"-I on {N_SUB} pairs", base + pe + [
+            "-o", str(work / "p9_I_dev.sam"), ref] + sub)
+        t0 = time.perf_counter()
+        assert cli.main(["mem", "--no-device"] + pe + [
+            "-o", str(work / "p9_I_host.sam"), ref] + sub) == 0
+        t_host = time.perf_counter() - t0
+        r12 = [str(_head_fastq(work / f"r{k}.fq", work / f"p9_r{k}.fq",
+                               P9_PAIRS)) for k in (1, 2)]
+        runs["insert"] = _cli_run(f"-I on {P9_PAIRS} pairs", base + pe + [
+            "-o", str(work / "p9_I.sam"), ref] + r12)
+    finally:
+        del os.environ["BWA_TPU_EXTEND16"]
+    if _body(work / "p9_I_dev.sam") != _body(work / "p9_I_host.sam"):
+        raise SystemExit(f"-I: the device SAM differs from --no-device on "
+                         f"{N_SUB} pairs")
+    print(f"[p9] -I {INSERT_MEAN},{INSERT_SD}: device SAM == --no-device "
+          f"SAM on {N_SUB} pairs (--no-device {t_host:.1f} s)")
+    mapped = proper = 0
+    for f in _records(work / "p9_I.sam"):
+        flag = int(f[1])
+        if not flag & 0x900:
+            mapped += 0 if flag & 0x4 else 1
+            proper += 1 if flag & 0x42 == 0x42 else 0
+    frac, frac_p = mapped / (2 * P9_PAIRS), proper / P9_PAIRS
+    print(f"[p9] -I on {P9_PAIRS} pairs: reads mapped {frac:.4f}, pairs "
+          f"proper {frac_p:.4f}")
+    if frac_p < 0.90:
+        raise SystemExit(f"-I: only {frac_p:.4f} of pairs proper")
+    for tag in ("insert_sub", "insert"):
+        if device == "cuda" and (runs[tag]["launches16"] <= 0
+                                 or runs[tag]["launches"]):
+            raise SystemExit(f"the {tag} run did not run on the int16 "
+                             "kernel alone")
+    return runs
+
+
+# a `mem` run whose second batch's first wave fetch finds the card held
+# by a spin kernel of argv[1] cycles; prints when it was queued
+_STALL_SCRIPT = """\
+import sys, time, torch
+from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.pipeline import batch
+fetch, ext = batch.BatchAligner.fetch, batch.BatchAligner.extend_waves
+armed = []
+def stalled_fetch(self, t):
+    if armed and t.dim() == 2 and t.shape[0] == 12:
+        armed.clear()
+        torch.cuda._sleep(int(sys.argv[1]))
+        print(f"[stall] queued at {time.time():.3f}", file=sys.stderr,
+              flush=True)
+    return fetch(self, t)
+calls = []
+def arm(self, *a, **k):
+    calls.append(1)
+    if len(calls) == 2:
+        armed.append(1)
+    return ext(self, *a, **k)
+batch.BatchAligner.fetch = stalled_fetch
+batch.BatchAligner.extend_waves = arm
+cli.entry_main(sys.argv[2:])
+"""
+
+
+def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
+    """--validate-every 1 on phase 3's reads (SAM == full.sam, one
+    validation a batch); the corrupted-result injections (one lane's
+    score: the validation names the read; qle = -3 with validation off:
+    the structural check); a real stall (a spin kernel on the wave's
+    stream before its fetch) under --device-timeout STALL_TIMEOUT, in
+    process and in a CLI subprocess; and phase 3's run with the watchdog
+    off and on in turns, its cost."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.ops.chain2aln_torch import DescTaskBuffer
+    from bwa_flow_tpu_torch.pipeline.batch import (BatchAligner,
+                                                   DeviceResultError)
+    from bwa_flow_tpu_torch.pipeline.dataflow import AlignPipeline
+
+    ref, fq = str(work / "ref.fa"), str(work / "reads.fq")
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
+    runs: dict = {}
+    with timed_calls(AlignPipeline, "_validate_sample") as val:
+        runs["validate"] = _cli_run("--validate-every 1", base + [
+            "--validate-every", "1", "-o", str(work / "p9_valid.sam"), ref,
+            fq])
+    v = runs["validate"]["stats"]
+    print(f"[p9] --validate-every 1: {v['validations']} validations of "
+          f"{v['seed_batches']} batches, {val['s']:.2f} s of golden "
+          "checks")
+    if _body(work / "p9_valid.sam") != _body(work / "full.sam"):
+        raise SystemExit("the --validate-every 1 SAM differs from phase "
+                         "3's full.sam")
+    if v["validations"] != v["seed_batches"]:
+        raise SystemExit("not one validation a batch")
+    # the watchdog's cost: the same run with it off and on, in turns
+    # (the validated run above is the first "on"; its golden checks,
+    # outside every span, are taken out of its wall)
+    on = [dict(spans=runs["validate"]["spans"],
+               wall_s=runs["validate"]["wall_s"] - val["s"])]
+    off = []
+    waits = (BatchAligner, "wait", lambda a: None)
+    for i, timeout in enumerate(("0", "300", "0")):
+        with _recording(*waits) as seen:
+            r = _cli_run(f"--device-timeout {timeout}", base + [
+                "--device-timeout", timeout, "-o",
+                str(work / f"p9_t{i}.sam"), ref, fq])
+        if timeout == "300":
+            n_waits = len(seen)
+        if _body(work / f"p9_t{i}.sam") != _body(work / "full.sam"):
+            raise SystemExit(f"the --device-timeout {timeout} SAM differs "
+                             "from phase 3's full.sam")
+        (off if timeout == "0" else on).append(r)
+    runs["timeout0"] = off[0]
+
+    def mean(rs, key):
+        return sum(r["spans"][key] if key != "wall_s" else r["wall_s"]
+                   for r in rs) / len(rs)
+    cost = {k: (mean(on, k), mean(off, k))
+            for k in ("seed", "extend_waves", "wall_s")}
+    print(f"[p9] watchdog cost over whole runs (means of 2 on, 2 off, in "
+          f"turns): seed span {cost['seed'][0]:.3f} s on, "
+          f"{cost['seed'][1]:.3f} s off ({cost['seed'][0] / cost['seed'][1]:.3f}x); "
+          f"extend_waves {cost['extend_waves'][0]:.3f} / "
+          f"{cost['extend_waves'][1]:.3f} s; wall {cost['wall_s'][0]:.2f} / "
+          f"{cost['wall_s'][1]:.2f} s ({cost['wall_s'][0] / cost['wall_s'][1]:.3f}x); "
+          f"phase 3 (on, first index load included): seed "
+          f"{main['spans']['seed']:.3f} s, extend_waves "
+          f"{main['spans']['extend_waves']:.3f} s, wall {main['wall_s']:.2f} s;"
+          f" {n_waits} watched waits a run")
+    runs["watchdog"] = dict(
+        runs={k: [[round(r["spans"]["seed"], 3), round(r["wall_s"], 2)]
+                  for r in rs] for k, rs in (("on", on), ("off", off))},
+        seed_ratio=cost["seed"][0] / cost["seed"][1],
+        wall_ratio=cost["wall_s"][0] / cost["wall_s"][1], waits=n_waits)
+
+    # one lane's score off by one, in a lane of a read the validation
+    # samples (reads 0 and N_SUB / 2 of the batch; each of these reads
+    # has an extension to make), inside the structural check's range: the
+    # validation must name that read
+    sub = str(_inexact_reads(work, work / "p9_bad.fq", N_SUB))
+    targets = (0, N_SUB // 2)
+    hit: dict = {}
+    real_core = extend_cuda.extend_core_cuda
+
+    def off_by_one(qmax, tmax, q, qlen, t, tlen, h0, *rest):
+        out = real_core(qmax, tmax, q, qlen, t, tlen, h0, *rest)
+        if "read" not in hit:
+            ql, hh = qlen.cpu().numpy(), h0.cpu().numpy()
+            sc = out[0].cpu().numpy()
+            for target in targets:
+                lane = np.nonzero((rows[-1] == target) & (ql > 0))[0]
+                if len(lane):
+                    j = int(lane[0])
+                    delta = -1 if sc[j] > hh[j] else 1
+                    out[0][j:j + 1].add_(delta)
+                    hit.update(read=target, lane=j, delta=delta)
+                    break
+        return out
+    with _recording(DescTaskBuffer, "run_async",
+                    lambda a: a[0].desc[0, :max(a[0].n, 1)].copy()) as rows:
+        extend_cuda.extend_core_cuda = off_by_one
+        try:
+            err = _failing_run(base + ["--validate-every", "1", "-o",
+                                       str(work / "p9_bad.sam"), ref, sub])
+        finally:
+            extend_cuda.extend_core_cuda = real_core
+    names = [l[1:].split()[0] for l in open(sub).read().splitlines()[::4]]
+    name = f"read {hit['read']} ({names[hit['read']]})" if hit else "?"
+    if not isinstance(err, DeviceResultError) or name not in str(err) \
+            or "golden model" not in str(err):
+        raise SystemExit(f"the corrupted score gave {err!r}, not a "
+                         f"validation error naming {name}")
+    print(f"[p9] score {hit['delta']:+d} in lane {hit['lane']} ("
+          f"{name}): DeviceResultError: {str(err)[:300]}")
+
+    # qle = -3 in every lane of the first left extension, validation off
+    def bad_qle(*a):
+        out = real_core(*a)
+        out[1].fill_(-3)
+        return out
+    extend_cuda.extend_core_cuda = bad_qle
+    try:
+        err = _failing_run(base + ["-o", str(work / "p9_bad.sam"), ref,
+                                   sub])
+    finally:
+        extend_cuda.extend_core_cuda = real_core
+    if not isinstance(err, DeviceResultError) or "qle = -3" not in str(err):
+        raise SystemExit(f"qle = -3 gave {err!r}, not a structural check "
+                         "error")
+    print(f"[p9] qle = -3 with --validate-every 0: DeviceResultError: "
+          f"{err}")
+
+    # a real stall: the card held by a spin kernel of ~STALL_S s queued on
+    # the wave's stream just before its fetch
+    cycles = int(STALL_S * SPIN_HZ)
+    real_fetch = BatchAligner.fetch
+    stall: dict = {}
+
+    def stalled_fetch(self, t):
+        if not stall and t.dim() == 2 and t.shape[0] == 12:
+            torch.cuda._sleep(cycles)
+            stall["t0"] = time.perf_counter()
+        return real_fetch(self, t)
+    BatchAligner.fetch = stalled_fetch
+    try:
+        err = _failing_run(base + ["--device-timeout", str(STALL_TIMEOUT),
+                                   "-o", str(work / "p9_stall.sam"), ref,
+                                   sub])
+        t_err = time.perf_counter() - stall.get("t0", time.perf_counter())
+    finally:
+        BatchAligner.fetch = real_fetch
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t_sync = time.perf_counter() - t0
+    print(f"[p9] stall of ~{STALL_S} s under --device-timeout "
+          f"{STALL_TIMEOUT}: {type(err).__name__} {t_err:.2f} s after the "
+          f"spin kernel was queued; the card was free {t_sync:.2f} s later")
+    if not isinstance(err, TimeoutError) or not 2 <= t_err <= 5:
+        raise SystemExit(f"the stall gave {err!r} after {t_err:.2f} s")
+    runs["stall_s"] = t_err
+
+    # the same stall in a CLI subprocess (its second batch): exits non-zero
+    script = work / "stall_run.py"
+    script.write_text(_STALL_SCRIPT)
+    fq2 = str(_head_fastq(work / "reads.fq", work / "p9_stall.fq",
+                          P9_READS))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, str(script), str(cycles), "mem", "-t", "8",
+         "--batch-reads", str(P9_READS // 2), "--device", device,
+         "--device-timeout",
+         str(STALL_TIMEOUT), "-o", str(work / "p9_stall2.sam"), ref, fq2],
+        capture_output=True, text=True, env=env, timeout=300)
+    t_end = time.time()
+    queued = [float(l.split()[-1]) for l in r.stderr.splitlines()
+              if l.startswith("[stall] queued at ")]
+    errs = [l for l in r.stderr.splitlines() if l.startswith("[E::mem]")]
+    print(f"[p9] stalled CLI subprocess: exit {r.returncode}, wall "
+          f"{t_end - t0:.2f} s, exit {t_end - queued[0]:.2f} s after the "
+          f"spin kernel was queued; {errs[:1]}" if queued else
+          f"[p9] stalled CLI subprocess: exit {r.returncode}, no stall "
+          f"queued; stderr {r.stderr[-2000:]}")
+    if r.returncode == 0 or not queued or not errs:
+        raise SystemExit("the stalled CLI run did not fail with [E::mem]")
+    runs["stall_cli"] = dict(wall_s=t_end - t0, after_stall_s=t_end
+                             - queued[0])
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1295,6 +1713,10 @@ def main() -> int:
                        "cuda")
     lres = timed_phase("8 local devices", phase_local_devices, WORK, "cuda",
                        LD_SHARDS)
+    yres = timed_phase("9 bypassed paths", phase_bypassed_paths, WORK,
+                       "cuda")
+    vres = timed_phase("9 validation and watchdog", phase_validation_watchdog,
+                       WORK, "cuda", mres)
     launches_by_path = {
         "ksw_extend2": {"single_end": mres["launches"],
                         "sort": sres["launches"],
@@ -1303,8 +1725,15 @@ def main() -> int:
                         "local_devices": lres["launches"],
                         "local_devices_shards": lres["shard_launches"],
                         "seed_extend_batch": bres["launches"],
-                        "mesh_dryrun": lres["mesh_launches"]},
-        "ksw_extend2_i16": {"paired_end": pres["launches"]}}
+                        "mesh_dryrun": lres["mesh_launches"],
+                        "p9_default": yres["default"]["launches"],
+                        "p9_wide": yres["wide"]["launches"],
+                        "p9_no_dense_sa": yres["no_dense_sa"]["launches"],
+                        "p9_validate": vres["validate"]["launches"],
+                        "p9_timeout0": vres["timeout0"]["launches"]},
+        "ksw_extend2_i16": {"paired_end": pres["launches"],
+                            "p9_insert_sub": yres["insert_sub"]["launches16"],
+                            "p9_insert": yres["insert"]["launches16"]}}
 
     # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
     # *_b4096 at the widest wave

@@ -3,13 +3,18 @@
 byte-equal, single-end and paired-end mem SAM equal apart from @PG
 (paired-end also with the int16 extension core and with -I),
 --no-device equal too, and so are runs sharded over CPU devices with
---local-devices; `--sort` BAMs equal after decompression."""
+--local-devices, and validated runs under the hang watchdog; `--sort`
+BAMs equal after decompression. Runs that cannot be right (a hung
+device, a corrupted result) exit non-zero, and --ext-mode host is
+refused."""
 
 import gzip
+import json
 import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +25,7 @@ from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.io import bam
 from bwa_flow_tpu_torch.ops import extend_torch
 from bwa_flow_tpu_torch.pipeline import sort
+from bwa_flow_tpu_torch.pipeline.batch import BatchAligner, DeviceResultError
 
 # small tensors: one intra-op thread per test process (xdist runs six)
 torch.set_num_threads(1)
@@ -150,13 +156,136 @@ def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--device-timeout", "1"],
                                    ["--validate-every", "1"],
-                                   ["--ext-mode", "waves"]])
-def test_later_slice_options_exit_nonzero(workdir, extra):
+                                   ["--ext-mode", "host"]])
+def test_later_slice_options_exit_nonzero(workdir, extra, monkeypatch,
+                                          capsys):
+    """Each of the three options ends a run that cannot be right with a
+    non-zero exit, where the JAX package degrades to the host: a device
+    that never finishes (--device-timeout), a corrupted region
+    (--validate-every); --ext-mode host is refused, naming the native
+    _wave driver it would need."""
+    monkeypatch.delenv("BWA_TPU_EXT", raising=False)
+    if extra[0] == "--device-timeout":
+        monkeypatch.setattr(BatchAligner, "_ready",
+                            staticmethod(lambda device: lambda: False))
+        want = TimeoutError
+    elif extra[0] == "--validate-every":
+        real = BatchAligner.extend_waves
+
+        def corrupted(self, *a, **k):
+            regs = real(self, *a, **k)
+            regs[0][0].score += 1
+            return regs
+        monkeypatch.setattr(BatchAligner, "extend_waves", corrupted)
+        want = DeviceResultError
     with pytest.raises(SystemExit) as e:
         cli.main(["mem", "--device", "cpu"] + extra
-                 + [str(workdir / "ref.fa"), str(workdir / "se.fq")])
+                 + ["-o", str(workdir / "later.sam"), str(workdir / "ref.fa"),
+                    str(workdir / "se.fq")])
     assert e.value.code not in (0, None)
-    assert "not ported" in str(e.value.code)
+    if extra[0] == "--ext-mode":
+        assert "native _wave driver" in str(e.value.code)
+    else:
+        assert isinstance(e.value.__cause__, want)
+        assert "[E::mem] " in capsys.readouterr().err
+
+
+def test_validation_and_timeout_equal_jax_sam(workdir):
+    """--validate-every 1 --device-timeout 5: the JAX package's SAM, one
+    validation a batch."""
+    out = workdir / "se_validated.sam"
+    assert cli.main(["mem", "--device", "cpu", "--validate-every", "1",
+                     "--device-timeout", "5", "--batch-reads", "4", "-o",
+                     str(out), str(workdir / "ref.fa"),
+                     str(workdir / "se.fq")]) == 0
+    assert _body(out) == _body(workdir / "jax" / "se.sam")
+    assert cli.last_run_stats["validations"] == 3
+
+
+def test_ext_mode_waves_is_the_default_path(workdir, monkeypatch):
+    monkeypatch.delenv("BWA_TPU_EXT", raising=False)
+    out = workdir / "se_waves.sam"
+    assert cli.main(["mem", "--device", "cpu", "--ext-mode", "waves", "-o",
+                     str(out), str(workdir / "ref.fa"),
+                     str(workdir / "se.fq")]) == 0
+    assert _body(out) == _body(workdir / "jax" / "se.sam")
+    assert cli.last_run_stats["ext_tasks_device"] > 0
+
+
+def test_ext_mode_host_from_the_environment_exits(workdir, monkeypatch):
+    monkeypatch.setenv("BWA_TPU_EXT", "host")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["mem", "--device", "cpu", str(workdir / "ref.fa"),
+                  str(workdir / "se.fq")])
+    assert e.value.code not in (0, None)
+    assert "native _wave driver" in str(e.value.code)
+
+
+def test_help_lists_the_options(capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["mem", "--help"])
+    assert e.value.code == 0
+    text = " ".join(capsys.readouterr().out.split())
+    for opt in ("--validate-every", "--device-timeout", "--ext-mode"):
+        assert opt in text
+    assert "{host,waves}" in text and "native _wave driver" in text
+
+
+# a `mem` run whose device stops finishing from its second batch's waves
+# on; it records its pool's worker pids in argv[1]
+_STALL_SCRIPT = """\
+import json, sys
+from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.pipeline import batch, dataflow
+init, ext = dataflow.AlignPipeline.__init__, batch.BatchAligner.extend_waves
+def pool_pids(self, *a, **k):
+    init(self, *a, **k)
+    with open(sys.argv[1], "w") as f:
+        json.dump([p.pid for p in self.pool._pool], f)
+calls = []
+def stall(self, *a, **k):
+    calls.append(1)
+    if len(calls) == 2:
+        self._ready = lambda device: (lambda: False)
+    return ext(self, *a, **k)
+dataflow.AlignPipeline.__init__ = pool_pids
+batch.BatchAligner.extend_waves = stall
+cli.entry_main(sys.argv[2:])
+"""
+
+
+def test_stalled_run_exits_nonzero_and_leaves_no_pool_child(workdir):
+    """A run whose device hangs in its second batch, while the first
+    batch's tail runs in a pool of two workers: exit non-zero with
+    [E::mem] on stderr, no pool worker left behind."""
+    script = workdir / "stall_run.py"
+    script.write_text(_STALL_SCRIPT)
+    pids_f = workdir / "stall_pids.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, str(script), str(pids_f), "mem", "--device", "cpu",
+         "-t", "3", "--batch-reads", "4", "--device-timeout", "0.5", "-o",
+         str(workdir / "stall.sam"), str(workdir / "ref.fa"),
+         str(workdir / "se.fq")], capture_output=True, text=True,
+        env=env, timeout=300)
+    assert r.returncode not in (0, None), r.stderr[-2000:]
+    assert "[E::mem] device work did not finish" in r.stderr
+    pids = json.loads(pids_f.read_text())
+    assert len(pids) == 2
+    deadline = time.monotonic() + 10
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in alive if _alive(p)]
+        time.sleep(0.1)
+    assert not alive
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])
