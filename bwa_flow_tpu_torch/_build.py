@@ -1,4 +1,5 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's native code: the hand-written CUDA
+kernels, and the host libraries of the native route.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher. At first use
 it is compiled with ``nvcc`` for ``sm_90a`` into a shared library under
@@ -7,27 +8,48 @@ source, the shared headers ``csrc/*.cuh`` and the flags, and loaded with
 ``ctypes``. A changed source therefore builds anew, and an unchanged one
 loads from the previous build. nvcc's output (with ``-Xptxas -v``: each
 kernel's registers, shared memory and spills) is kept beside the library
-and returned by ``build_log``. There is no fallback: a missing ``nvcc``
-or a failed build raises.
+and returned by ``build_log``.
+
+Each ``csrc/host/<name>.cpp`` (``_chain``, ``_region``, ``_wave``) is a
+CPython extension. At first use it is compiled with the system ``c++``
+into ``build/host/``, named by a hash of the source, the headers
+``csrc/host/*.h``, the flags and the interpreter's include directory,
+under a file lock (one build for every process of the checkout), and
+loaded as ``bwa_flow_tpu_torch.<name>``.
+
+There is no fallback: a missing ``nvcc``, ``c++`` or ``Python.h``, or a
+failed build, raises with the compiler's output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+HOST_SRC = CSRC / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+HOST_BUILD_DIR = BUILD_DIR.parent / "host"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# setup.py's flags for the JAX package's copies of these extensions, plus
+# what a shared CPython extension needs
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+HOST_LIBS = ("_chain", "_region", "_wave")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_HOST_MODS: dict = {}
 
 
 def nvcc() -> str:
@@ -105,3 +127,118 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(lib_path(name)))
             _LIBS[name] = lib
     return lib
+
+
+# ---------------------------------------------------------------------------
+# host libraries (CPython extensions)
+
+def cxx() -> str:
+    """Path of the system C++ compiler."""
+    found = shutil.which("c++")
+    if not found:
+        raise RuntimeError("c++ not found: the native route of "
+                           "bwa_flow_tpu_torch builds its host libraries "
+                           "with the system C++ compiler")
+    return found
+
+
+def python_include() -> str:
+    """The interpreter's include directory; raises without Python.h."""
+    inc = sysconfig.get_paths()["include"]
+    if not os.path.isfile(os.path.join(inc, "Python.h")):
+        raise RuntimeError(f"Python.h not found in {inc}: the native route "
+                           "of bwa_flow_tpu_torch needs the interpreter's "
+                           "development headers")
+    return inc
+
+
+def host_lib_path(name: str) -> Path:
+    src = (HOST_SRC / f"{name}.cpp").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(HOST_SRC.glob("*.h")))
+    key = src + " ".join(HOST_FLAGS).encode() + python_include().encode()
+    h = hashlib.sha256(key).hexdigest()
+    suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
+    return HOST_BUILD_DIR / f"{name}-{h[:16]}{suffix}"
+
+
+def _host_start(name: str):
+    """Take csrc/host/<name>.cpp's build lock and start its compiler;
+    returns the job, or None (lock released) when it is built already.
+    Another process building the same library holds the lock until its
+    build is installed."""
+    out = host_lib_path(name)
+    if out.exists():
+        return None
+    HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock = open(HOST_BUILD_DIR / f".{name}.lock", "w")
+    try:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            lock.close()
+            return None
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [cxx(), *HOST_FLAGS, f"-I{python_include()}", "-o", str(tmp),
+               str(HOST_SRC / f"{name}.cpp")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        lock.close()
+        raise
+    return proc, tmp, out, lock
+
+
+def _host_finish(name: str, job) -> None:
+    if job is None:
+        return
+    proc, tmp, out, lock = job
+    try:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"c++ failed for csrc/host/{name}.cpp "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, out)   # atomic: concurrent loaders never see halves
+    finally:
+        lock.close()           # releases the build lock
+
+
+def build_host(names=HOST_LIBS) -> None:
+    """Compile every named host library not built yet, one c++ each, all
+    started together (locks taken in name order); waits for every one,
+    then raises the first failure, so no compiler is left running and no
+    lock held."""
+    jobs, errs = [], []
+    try:
+        for n in sorted(names):
+            jobs.append((n, _host_start(n)))
+    finally:
+        for n, job in jobs:
+            try:
+                _host_finish(n, job)
+            except Exception as e:  # noqa: BLE001 - the first is raised
+                errs.append(e)
+    if errs:
+        raise errs[0]
+
+
+def host_module(name: str):
+    """The host library csrc/host/<name>.cpp as the extension module
+    bwa_flow_tpu_torch.<name>; the first call builds every host library
+    not built yet, all at once."""
+    mod = _HOST_MODS.get(name)
+    if mod is not None:
+        return mod
+    with _LOCK:
+        mod = _HOST_MODS.get(name)
+        if mod is None:
+            build_host()
+            full = f"{__package__}.{name}"
+            path = str(host_lib_path(name))
+            loader = importlib.machinery.ExtensionFileLoader(full, path)
+            spec = importlib.util.spec_from_file_location(full, path,
+                                                          loader=loader)
+            mod = importlib.util.module_from_spec(spec)
+            loader.exec_module(mod)
+            sys.modules[full] = mod
+            _HOST_MODS[name] = mod
+    return mod

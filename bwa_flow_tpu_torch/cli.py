@@ -6,13 +6,18 @@ coordinate-sorted BAM (--sort) as output, in one process or in several
 (--nprocs/--proc-id/--coordinator, --dist pull|stride), on one device or
 on several from one process (--local-devices N).
 
+`mem` takes the native route (pipeline/batch.py: the port's host
+libraries csrc/host, built with c++ at first use), as a built JAX
+install does; in-process callers reach the pure-Python route with
+_mem(..., native=False). --ext-mode host (the default, also from
+BWA_TPU_EXT) runs every extension task on harvester threads (the native
+_wave driver's exact scalar kernel) and launches no ksw kernel;
+--ext-mode waves runs device extension waves beside them.
+
 --validate-every N and --device-timeout S are the JAX package's result
 validation and hang watchdog, with one difference: where the JAX package
 degrades to the host for the rest of the run, a mismatch or a hang here
-prints `[E::mem] ...` and the run exits non-zero. --ext-mode waves is
-what runs; --ext-mode host (or BWA_TPU_EXT=host) exits with a message,
-since harvester-thread extension needs the JAX package's native _wave
-driver.
+prints `[E::mem] ...` and the run exits non-zero.
 
 --local-devices N shards every batch over N devices of this process
 (one index replica, seed program and wave streams on each; the SAM is
@@ -135,12 +140,11 @@ def _mem_parser() -> argparse.ArgumentParser:
       "the run then fails (the JAX package degrades to the host "
       "instead); 0 disables")
     a("--ext-mode", choices=("host", "waves"), default=None,
-      dest="ext_mode", help="extension placement: waves = device "
-      "extension waves, what this port runs; host (also from "
-      "BWA_TPU_EXT=host) is refused: harvester-thread extension needs "
-      "the JAX package's native _wave driver, which this port may not "
-      "import. On the JAX package's pure-Python route neither value "
-      "changes anything")
+      dest="ext_mode", help="extension placement: host = harvester "
+      "threads run every task on the native _wave driver's exact scalar "
+      "kernel while the device seeds the next batch (default); waves = "
+      "device extension waves, with harvesters sharing the work. Also "
+      "settable via BWA_TPU_EXT")
     a("--help", action="help")
     a("ref")
     a("fastq", nargs="+")
@@ -294,12 +298,6 @@ def _rg_id(rg_line) -> str:
 
 def main_mem(argv: list[str]) -> int:
     args = _mem_parser().parse_args(argv)
-    if (args.ext_mode or os.environ.get("BWA_TPU_EXT")) == "host":
-        raise SystemExit(
-            "[E] --ext-mode host (or BWA_TPU_EXT=host) runs extension on "
-            "harvester threads, which needs the JAX package's native "
-            "_wave driver; bwa_flow_tpu_torch may not import it and runs "
-            "device extension waves (--ext-mode waves)")
     if args.sort and args.output == "-":
         raise SystemExit("[E] --sort requires -o FILE.bam")
     opt = build_opt(args)
@@ -331,11 +329,13 @@ def local_devices(device, n: int | None) -> list[torch.device] | None:
             for i in range(min(n, count))]
 
 
-def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
+def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
+         native: bool = True) -> int:
     """`mem` as rank `pid` of `nprocs` (the process group, if any, is
     formed and destroyed by the caller). `devices`, a list of torch
     devices (it may repeat one), shards the device path over them in
-    place of --device/--local-devices."""
+    place of --device/--local-devices. native=False takes the
+    pure-Python route (AlignPipeline)."""
     device = args.device
     if nprocs > 1:
         # per-rank output (the reference's <host>-<pid> dirs,
@@ -476,7 +476,8 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
                                  mp_context=args.mp_context, device=device,
                                  devices=devices,
                                  validate_every=args.validate_every,
-                                 device_timeout=args.device_timeout)
+                                 device_timeout=args.device_timeout,
+                                 native=native, ext_mode=args.ext_mode)
             try:
                 pipe.run(batches(), emit)
             finally:
@@ -488,6 +489,15 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
             print(f"[M::mem] kernel launches: ksw_extend2 "
                   f"{extend_cuda.n_launches - n0[0]}, ksw_extend2_i16 "
                   f"{extend_cuda.n_launches16 - n0[1]}", file=sys.stderr)
+            st = pipe.ba.stats
+            route = f"native route, {pipe.ba.ext_mode} mode, " \
+                f"{pipe.ba.harvest_workers} harvester threads" if native \
+                else "python route"
+            print(f"[M::mem] extension ({route}): {st['waves']} waves, "
+                  f"{st['ext_tasks_device']} device tasks, "
+                  f"{st['ext_tasks_host']} host tasks (oversize "
+                  f"{st['host_oversize_q']} + {st['host_oversize_t']}, "
+                  f"scheduled {st['host_sched']})", file=sys.stderr)
             shards = pipe.ba.stats["shards"]
             for i, sh in enumerate(shards if len(shards) > 1 else ()):
                 print(f"[M::mem] shard {i} on {sh['device']}: seed "

@@ -12,7 +12,8 @@ package:
     extension per shard, the psum merges), then the production pipeline
     with n shards, whose SAM must equal the one-device SAM. The JAX
     package skips that second half without its native extensions; here
-    the sharded waves need no native code, so it always runs.
+    it runs the pure-Python route, whose sharded waves need no native
+    code, so it always runs.
 
 Both run on `cuda` unless the caller asks for the CPU. A device list may
 repeat a device, so one card, or the CPU, can host n shards.
@@ -150,8 +151,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     # the production pipeline sharded over the same devices must give
     # the one-device SAM byte for byte
     def run_pipe(devs):
+        # the pure-Python route: its sharded waves run at any batch size
+        # (the native route drains shards of at most 64 reads on the host)
         pipe = AlignPipeline(MemOpt(), fm, paired=False, n_workers=0,
-                             devices=devs,
+                             devices=devs, native=False,
                              aligner_kw=dict(smem_L=L, wave_cap=64,
                                              qmax=64, tmax=192))
         done: list = []

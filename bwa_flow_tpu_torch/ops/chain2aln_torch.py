@@ -219,11 +219,11 @@ def seed_extend_desc_batch(qmax: int, tmax: int, L_reads: int, dfm,
                            ) -> torch.Tensor:
     """Coupled seed extension from task DESCRIPTORS.
 
-    reads: [B_reads, L_reads] (0..4, the seeding batch); desc: int64[11,
-    T] (read_idx, qbeg, slen, l_query, rbeg, rmax0, rmax1, h0, wl, wr,
-    skip_left). Each side runs ONE banded extension at its per-lane
-    width; bwa's rare band-doubling retry is re-enqueued by the host
-    driver. skip_left lanes are right-only retries whose h0 carries the
+    reads: [B_reads, L_reads] (0..4, the seeding batch); desc: int64 or,
+    narrowed (narrow_desc), int32 [11, T] (read_idx, qbeg, slen,
+    l_query, rbeg, rmax0, rmax1, h0, wl, wr, skip_left). Each side runs
+    ONE banded extension at its per-lane width; bwa's rare band-doubling
+    retry is re-enqueued by the host driver. skip_left lanes are right-only retries whose h0 carries the
     saved left score. use16 runs both sides on the int16 core (the
     caller checks fits_i16). Returns int32[12, T]: (lscore, lqle, ltle,
     lgtle, lgscore, lmax_off, rscore, rqle, rtle, rgtle, rgscore,
@@ -287,6 +287,17 @@ def seed_extend_desc_batch(qmax: int, tmax: int, L_reads: int, dfm,
     return torch.stack([o.to(I32) for o in out])
 
 
+def narrow_desc(desc: np.ndarray) -> np.ndarray:
+    """Halve a descriptor block's upload bytes when every value (in
+    particular the genome coordinates in rows 4-6) fits int32 — true for
+    any genome under 1 Gbp (seq_len = 2*l_pac < 2^31).
+    seed_extend_desc_batch widens the coordinate rows back to int64."""
+    if desc.dtype == np.int64 and int(desc.max(initial=0)) < 2**31 \
+            and int(desc.min(initial=0)) > -(2**31):
+        return desc.astype(np.int32)
+    return desc
+
+
 class DescTaskBuffer:
     """Descriptor-only task buffer: ~100 bytes per task go to the device;
     the windows assemble there (seed_extend_desc_batch)."""
@@ -327,12 +338,19 @@ class DescTaskBuffer:
         self.n += 1
         return i
 
-    def _params(self, opt, device):
-        """Scoring constants: the matrix uploaded once per device."""
+    def _params(self, opt, device, put=None):
+        """Scoring constants: the matrix uploaded once per device, through
+        `put(array, device)` when given (a caller's watched upload). A
+        CUDA device without an index means the current card, the one
+        the matrix lands on, so the next call finds it cached."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         cache = getattr(self, "_params_cache", None)
         if cache is None or cache[0].device != device:
-            cache = (torch.as_tensor(np.ascontiguousarray(opt.mat[:5, :5]),
-                                     dtype=I32, device=device),
+            mat = np.ascontiguousarray(opt.mat[:5, :5], np.int32)
+            cache = (put(mat, device) if put is not None
+                     else torch.as_tensor(mat, device=device),
                      int(opt.o_del), int(opt.e_del), int(opt.o_ins),
                      int(opt.e_ins), int(opt.pen_clip5),
                      int(opt.pen_clip3), int(opt.zdrop))

@@ -1,6 +1,16 @@
 """Batched device aligner — the device compute path of the pipeline.
 
-Port of bwa_flow_tpu/pipeline/batch.py (its pure-Python route). Per batch:
+Port of bwa_flow_tpu/pipeline/batch.py, both of its routes. The native
+route (`native=True`, the default; the JAX package takes it when its
+extensions are built) runs stages 3-4 in the port's host libraries
+(csrc/host, built by _build): C++ chaining, and per-read extension state
+machines in the _wave driver, with Python moving descriptor waves to the
+device and results back, and harvester threads running reads on the
+exact scalar kernel meanwhile. Its extension mode (`ext_mode`, else
+BWA_TPU_EXT, else "host", as in the JAX package): "host" runs every
+task on the harvesters and no ksw kernel; "waves" runs device waves and
+leaves the harvesters a reserve. The pure-Python route (`native=False`,
+the JAX package without its extensions) runs, per batch:
 
   1. device SMEM seeding with fused SA resolution (ops/smem_torch.py)
   2. device SA probes for what the seed program did not resolve
@@ -20,8 +30,9 @@ batch on each device's index replica (parallel/mesh.py); the host
 stages see the whole batch in read order, with global read ids.
 
 Tasks too large for the device shapes run on the host scalar kernel
-inline. A device error, on any shard, propagates and fails the run. So
-do three checks the JAX package runs, which here raise where it
+inline. A device error, on any shard, propagates and fails the run. No
+route switches to the other on a failure. So do three checks the JAX
+package runs, which here raise where it
 degrades to the host for the rest of the run:
 
   - the hang watchdog: every read of the device from the host goes
@@ -51,8 +62,10 @@ from ..ops import chain as chainops
 from ..ops import fm as fmops
 from ..ops import pe as peops
 from ..ops import region as regionops
-from ..ops import extend_cuda, smem_torch
-from ..ops.chain2aln_torch import DescTaskBuffer
+from ..ops import chain_native, extend_cuda, region_native, smem_torch
+from ..ops import wave_native
+from ..ops.chain2aln_torch import (DescTaskBuffer, narrow_desc,
+                                   seed_extend_desc_batch)
 from ..ops.fm_torch import DeviceFM, sa_batch, to_host
 from ..ops.probe_layout import sa_probe_layout
 from ..ops.smem import IntvBatch
@@ -60,6 +73,11 @@ from ..parallel.mesh import replicate_fm, run_shards
 from ..utils.opts import MEM_F_PRIMARY5, MemOpt
 
 SA_CHUNK = 65536   # SA probes per device LF-walk call
+# the native route's small kernel shape class: tasks whose query sides
+# are both at most this long (JAX batch.py:617-620)
+Q_SMALL = 96
+# reads a harvester claims per steal
+STEAL_READS = 16
 # the watchdog's poll: for SPIN_S it checks again at once, yielding the
 # core and the interpreter lock between checks (a timed sleep would wake
 # late on a busy host); past that it sleeps NAP_S between checks
@@ -80,13 +98,19 @@ class DeviceResultError(RuntimeError):
     instead."""
 
 
-def wait_ready(ready, timeout: float) -> None:
+ABANDONED = "device wait abandoned: the run failed elsewhere"
+
+
+def wait_ready(ready, timeout: float, abort=None) -> None:
     """Poll ready() until it is true; raise TimeoutError once `timeout`
     seconds have passed (the reference's fpgaHangError, SWTask.cpp:
-    115-121). The blocked device work cannot be cancelled: the caller's
-    run fails."""
+    115-121), and RuntimeError(ABANDONED) at once when the event `abort`
+    is set (the run has failed on another thread). The blocked device
+    work cannot be cancelled: the caller's run fails."""
     t0 = time.monotonic()
     while not ready():
+        if abort is not None and abort.is_set():
+            raise RuntimeError(ABANDONED)
         dt = time.monotonic() - t0
         if dt >= timeout:
             raise TimeoutError(f"device work did not finish within the "
@@ -141,6 +165,18 @@ def bad_rows(desc: np.ndarray, rows: np.ndarray, max_mat: int):
     field = next(f for f, m in masks if m[j])
     side = sides[0] if field < 6 else sides[1]
     return j, field, (int(side[1][j]), int(side[2][j]), int(side[3][j]))
+
+
+def raise_bad_row(bad, rows: np.ndarray, ridx: int, names=None) -> None:
+    """Raise DeviceResultError for bad_rows' finding `bad` in a wave's
+    `rows`, naming the read (its index in the batch, and its name from
+    `names`), the field, its range and the wave lane."""
+    j, f, (qlen, tlen, h0) = bad
+    name = f" ({names[ridx]})" if names else ""
+    raise DeviceResultError(
+        f"wave row of read {ridx}{name}: {ROW_FIELDS[f]} = "
+        f"{int(rows[f, j])} is outside what its task allows (qlen {qlen}, "
+        f"tlen {tlen}, h0 {h0}); wave lane {j}")
 
 
 def check_against_golden(opt: MemOpt, fm: FMIndex, seq, got, what: str
@@ -216,16 +252,39 @@ class BatchAligner:
     the device (fetch, put): past it, TimeoutError. `validate_every` > 0
     checks `validate_sample` reads of every Nth batch of align_regs
     against the golden model (AlignPipeline runs its own sample); a
-    mismatch raises DeviceResultError."""
+    mismatch raises DeviceResultError.
+
+    `native` picks the route (module docstring); `ext_mode`,
+    `drain_max` and `harvest_workers` steer the native route's
+    extension as in the JAX package (batch.py:88-113): in "host" mode
+    every wave is a drained tail (drain_max 2^30) and ncpu - 1
+    harvester threads run the reads; in "waves" mode waves of at most
+    min(512, wave_cap // 16) pending reads drain on the host, and
+    min(2, ncpu - 2) harvesters share the work with the device."""
 
     def __init__(self, opt: MemOpt, fm: FMIndex, smem_L: int = 160,
                  wave_cap: int = 4096, qmax: int = 160, tmax: int = 512,
                  device=None, devices=None, validate_every: int = 0,
-                 validate_sample: int = 2, device_timeout: float = 300.0):
+                 validate_sample: int = 2, device_timeout: float = 300.0,
+                 native: bool = True, ext_mode: str | None = None,
+                 drain_max: int | None = None,
+                 harvest_workers: int | None = None):
         devs = [resolve_device(d) for d in (devices or [device])]
         self.device = devs[0]
         self.opt = opt
         self.fm = fm
+        self.native = native
+        self.ext_mode = ext_mode or os.environ.get("BWA_TPU_EXT", "host")
+        if self.ext_mode not in ("host", "waves"):
+            raise ValueError(f"ext_mode {self.ext_mode!r}: expected host "
+                             "or waves")
+        host = self.ext_mode == "host"
+        self.drain_max = drain_max if drain_max is not None \
+            else (1 << 30 if host else min(512, wave_cap // 16))
+        ncpu = os.cpu_count() or 2
+        self.harvest_workers = harvest_workers \
+            if harvest_workers is not None \
+            else (max(1, ncpu - 1) if host else max(0, min(2, ncpu - 2)))
         self.validate_every = validate_every
         self.validate_sample = validate_sample
         self.device_timeout = device_timeout
@@ -246,7 +305,9 @@ class BatchAligner:
         self._stats_lock = threading.Lock()
         self.stats = {"reads": 0, "sa_host_redo": 0,
                       "ext_tasks_device": 0, "ext_tasks_host": 0,
-                      "waves": 0, "band_retries": 0, "validations": 0,
+                      "host_oversize_q": 0, "host_oversize_t": 0,
+                      "host_sched": 0, "waves": 0, "band_retries": 0,
+                      "validations": 0,
                       "seed_batches": 0, "seed_s": 0.0,
                       "shards": [dict(device=str(d), seed_s=0.0, waves=0,
                                       ext_tasks_device=0, launches=0,
@@ -271,27 +332,28 @@ class BatchAligner:
         ev.record(torch.cuda.current_stream(device))
         return ev.query
 
-    def wait(self, device) -> None:
+    def wait(self, device, abort=None) -> None:
         """Wait for the work queued on `device` under the watchdog:
-        TimeoutError after device_timeout seconds. With device_timeout
-        <= 0 this returns at once, and the copy that follows waits with
-        no deadline."""
+        TimeoutError after device_timeout seconds, RuntimeError as soon
+        as `abort` is set (wait_ready). With device_timeout <= 0 this
+        returns at once, and the copy that follows waits with no
+        deadline."""
         if self.device_timeout > 0:
             wait_ready(self._ready(torch.device(device)),
-                       self.device_timeout)
+                       self.device_timeout, abort)
 
-    def fetch(self, t) -> np.ndarray:
+    def fetch(self, t, abort=None) -> np.ndarray:
         """Device -> host copy behind the watchdog; every read of the
         device on a batch's path goes through here."""
         if isinstance(t, torch.Tensor):
-            self.wait(t.device)
+            self.wait(t.device, abort)
         return to_host(t)
 
-    def put(self, a, device) -> torch.Tensor:
+    def put(self, a, device, abort=None) -> torch.Tensor:
         """Host -> device copy behind the watchdog: a copy from pageable
         memory waits for the stream's earlier work, so the watchdog
         waits first."""
-        self.wait(device)
+        self.wait(device, abort)
         return torch.as_tensor(a, device=device)
 
     # ------------------------------------------------------------------
@@ -303,8 +365,10 @@ class BatchAligner:
         device LF walks, chunks round-robin over the index replicas (any
         replica serves any probe), and walk overflows through the host
         bwt_sa."""
+        # the owners triplets serve only the Python chain path; the
+        # native route rebuilds them for the reads it sends there
         rows, offs, owners = sa_probe_layout(self.opt, all_intvs,
-                                             build_owners=True)
+                                             build_owners=not self.native)
         vals_all = np.empty(len(rows), dtype=np.int64)
         if not len(rows):
             return vals_all, offs, owners
@@ -412,10 +476,28 @@ class BatchAligner:
             luts[ridx][(x0, k)] = int(v)
         return luts
 
-    def chain_reads(self, seqs, all_intvs, sa_flat):
-        """Stage 3: host chaining (exact bwa semantics)."""
+    def _luts(self, all_intvs, sa_flat):
         vals, _, owners = sa_flat
-        luts = self._luts_from(owners, vals, len(seqs))
+        if owners is None:
+            owners = chain_native.owners_for(self.opt, all_intvs)
+        return self._luts_from(owners, vals, len(all_intvs))
+
+    def chain_reads(self, seqs, all_intvs, sa_flat):
+        """Stage 3: host chaining (exact bwa semantics) — the native
+        C++ stage on the native route, Python otherwise; long reads the
+        seed-SW filter applies to always take the Python path."""
+        vals, off, _ = sa_flat
+        if self.native:
+            out = chain_native.chain_batch(self.opt, self.fm, seqs,
+                                           all_intvs, vals, off)
+            need = [r for r, c in enumerate(out) if c is None]
+            if need:
+                luts = self._luts(all_intvs, sa_flat)
+                for r in need:
+                    out[r] = chain_read(self.opt, self.fm, seqs[r],
+                                        all_intvs[r], luts[r])
+            return out
+        luts = self._luts(all_intvs, sa_flat)
         return [chain_read(self.opt, self.fm, s, iv, lut)
                 for s, iv, lut in zip(seqs, all_intvs, luts)]
 
@@ -429,8 +511,12 @@ class BatchAligner:
         h = self.seeds_dispatch(seqs)
         all_intvs = self.seeds_collect(h)
         sa_flat = self.resolve_sa_flat(all_intvs, h)
-        all_chains = self.chain_reads(seqs, all_intvs, sa_flat)
-        all_regs = self.extend_waves(seqs, all_chains, names)
+        if self.native:
+            all_regs = region_native.unpack_regs(*self.extend_waves_packed(
+                seqs, all_intvs, sa_flat, names=names))
+        else:
+            all_chains = self.chain_reads(seqs, all_intvs, sa_flat)
+            all_regs = self.extend_waves(seqs, all_chains, names)
         final = [dedup_regs(opt, fm, seq, regs)
                  for seq, regs in zip(seqs, all_regs)]
         if self.validate_every and self._batch_no % self.validate_every == 0:
@@ -451,6 +537,265 @@ class BatchAligner:
                                  f"read {i}{name} of batch "
                                  f"{self._batch_no}")
 
+    # ------------------------------------------------------------------
+    # the native route's extension (JAX batch.py:516-952)
+
+    def extend_async(self, seqs, all_intvs, sa_flat, names=None):
+        """Run extend_waves_packed in a worker thread; returns join(),
+        which waits, re-raises the worker's error and returns (rows,
+        frac, off). join.abandon() is for a run that failed elsewhere: it
+        makes the worker give up at its next device wait or loop turn
+        (no second device timeout) and waits for it, its error dropped.
+        The device-resident reads
+        are taken HERE, on the caller's thread, because the caller goes
+        on to seed the next batch, whose collect repoints them. One
+        extension at a time. The worker's waves run on the device's
+        default stream, the stream the reads were made on, so they need
+        no cross-stream wait, and the watchdog's events (wait) watch the
+        stream the waves ran on; the price is that waves and the next
+        batch's seed program take turns on the device."""
+        pinned = self._dev_shards
+        box: dict = {}
+        abort = threading.Event()
+
+        def work():
+            try:
+                box["v"] = self.extend_waves_packed(
+                    seqs, all_intvs, sa_flat, pinned=pinned, names=names,
+                    abort=abort)
+            except BaseException as e:  # noqa: BLE001 - re-raised at join
+                box["e"] = e
+
+        th = threading.Thread(target=work, name="extend", daemon=True)
+        th.start()
+
+        def join():
+            th.join()
+            if "e" in box:
+                raise box["e"]
+            return box["v"]
+
+        def abandon():
+            abort.set()
+            th.join()
+        join.abandon = abandon
+        return join
+
+    def extend_waves_packed(self, seqs, all_intvs, sa_flat, pinned=None,
+                            names=None, abort=None):
+        """Stage 3-4 of the native route: C++ chaining and per-read
+        extension state machines (one _wave driver a shard), with this
+        thread moving descriptor waves to each shard's device, two wave
+        streams a shard served round-robin, while harvester threads run
+        pending reads on the exact scalar kernel (they steal round-robin
+        across the shards). Returns packed regions (rows int64[NR, 12],
+        frac float64[NR], off int64[n+1]) in read order, which feed the
+        native tails directly. Long reads the seed-SW filter applies to
+        run through the Python chain and mem_chain2aln and are spliced
+        in.
+
+        Wave tasks come in two kernel shape classes, slots sorted by
+        class: both query sides at most Q_SMALL, and the rest. Every
+        packed task runs at band w (band retries are recomputed on the
+        host), so the DP never touches target rows past qlen_side + w,
+        and each class runs at tmax = ceil8(qmax_class + w + 1) — the
+        exact clamp of seed_extend_desc_batch. Only the filled lanes
+        launch. Every wave's rows pass the structural check (bad_rows)
+        before the driver applies them: a bad row raises
+        DeviceResultError naming the read, the field and the wave lane,
+        and is never recomputed on the host. `pinned` is the shards'
+        (lo, hi, resident reads) to use in place of the last collect's
+        (extend_async). Once the event `abort` is set, the next device
+        wait or loop turn raises RuntimeError(ABANDONED)."""
+        from ..utils.trace import GLOBAL as tracer
+        opt = self.opt
+        n = len(seqs)
+        qmax, tmax = self.qmax, self.tmax
+        cap = self.shards[0]["bufs"][0].cap
+        max_mat = int(opt.mat.max())
+        dev_shards = pinned if pinned is not None else self._dev_shards
+        dev_shards = dev_shards or [(0, n, None)]
+        W = int(opt.w)
+        q_small = min(Q_SMALL, qmax)
+        shapes = [(q_small, -(-(q_small + W + 1) // 8) * 8),
+                  (qmax, -(-(qmax + W + 1) // 8) * 8)]
+        use16 = extend_cuda.fits_i16(qmax, self.smem_L * int(opt.a),
+                                     max_mat,
+                                     max(opt.pen_clip5, opt.pen_clip3, 0))
+        S = len(dev_shards)
+        ctxs = []
+        needs_global: list = []
+        with tracer.span("wave.create"):
+            for k, (lo, hi, reads) in enumerate(dev_shards):
+                hi = min(hi, n)
+                dev_flags = np.fromiter(
+                    (1 if reads is not None and len(seqs[r]) <= self.smem_L
+                     else 0 for r in range(lo, hi)), np.uint8, hi - lo)
+                sub_iv = all_intvs.slice_reads(lo, hi) \
+                    if hasattr(all_intvs, "slice_reads") \
+                    else all_intvs[lo:hi]
+                vals, off, _ = sa_flat
+                sub_sa = (vals[off[lo]:off[hi]], off[lo:hi + 1] - off[lo],
+                          None)
+                wd, needs = wave_native.create_driver(
+                    opt, self.fm, seqs[lo:hi], sub_iv, sub_sa, dev_flags,
+                    qmax, tmax, cap)
+                sh = self.shards[k]
+                ctxs.append(dict(k=k, lo=lo, wd=wd, reads=reads,
+                                 device=sh["device"], dfm=sh["dfm"],
+                                 params=sh["bufs"][0]._params(
+                                     opt, sh["device"],
+                                     lambda a, d: self.put(a, d, abort)),
+                                 inflight=[0, 0]))
+                needs_global.extend(lo + r for r in needs)
+        # the tail a shard drains on the host instead of packing a wave
+        drain_lim = self.drain_max if S == 1 \
+            else max(64, self.drain_max // S)
+        harvesting = self.harvest_workers > 0
+        stop_ev = threading.Event()
+
+        def live():
+            if abort is not None and abort.is_set():
+                raise RuntimeError(ABANDONED)
+            return True
+
+        def harvest(start):
+            i = start
+            while not stop_ev.is_set():
+                got = 0
+                for j in range(S):
+                    got = wave_native.steal(ctxs[(i + j) % S]["wd"],
+                                            STEAL_READS)
+                    if got:
+                        break
+                i += 1
+                if got == 0:
+                    stop_ev.wait(0.001)
+
+        hthreads = [threading.Thread(target=harvest, args=(j,),
+                                     name=f"harvest{j}", daemon=True)
+                    for j in range(self.harvest_workers)]
+
+        def pack_run(ctx, si):
+            wd = ctx["wd"]
+            eligible = wave_native.n_pending(wd) - ctx["inflight"][1 - si]
+            if 0 < eligible <= drain_lim:
+                if harvesting:
+                    return None   # the harvesters own the tail
+                with tracer.span("wave.drain"):
+                    wave_native.drain(wd)
+                return None
+            with tracer.span("wave.pack"):
+                r = wave_native.pack(wd, si, -1 if harvesting else 0,
+                                     q_small if q_small < qmax else 0)
+            if r is None:
+                return None
+            slots, desc, n_small = r
+            count = len(slots)
+            desc = desc[:, :count]
+            k = ctx["k"]
+            n0 = (extend_cuda.n_launches, extend_cuda.n_launches16)
+            with tracer.span("wave.dispatch"):
+                dd = self.put(narrow_desc(desc), ctx["device"], abort)
+                outs = [seed_extend_desc_batch(
+                    qm, tm, self.smem_L, ctx["dfm"], ctx["reads"],
+                    dd[:, lo_s:hi_s], *ctx["params"], use16=use16)
+                    for lo_s, hi_s, (qm, tm) in ((0, n_small, shapes[0]),
+                                                 (n_small, count, shapes[1]))
+                    if hi_s > lo_s]
+                out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+            # waves launch from this thread only, so the counts' change
+            # is this wave's
+            self._stat("launches", extend_cuda.n_launches - n0[0], shard=k)
+            self._stat("launches16", extend_cuda.n_launches16 - n0[1],
+                       shard=k)
+            for shard in (None, k):
+                self._stat("waves", shard=shard)
+                self._stat("ext_tasks_device", count, shard=shard)
+            ctx["inflight"][si] = count
+            return out, slots, desc
+
+        def apply(ctx, si, entry):
+            out, slots, desc = entry
+            with tracer.span("wave.fetch"):
+                rows = self.fetch(out, abort)
+            with tracer.span("wave.apply"):
+                bad = bad_rows(desc, rows, max_mat)
+                if bad is not None:
+                    raise_bad_row(bad, rows, ctx["lo"] + int(slots[bad[0]]),
+                                  names)
+                wave_native.apply_results(ctx["wd"], si, rows)
+            ctx["inflight"][si] = 0
+
+        try:
+            streams = [[ctx, si, None] for ctx in ctxs for si in (0, 1)]
+            for s_ in streams:
+                s_[2] = pack_run(s_[0], s_[1])
+            # harvesters start after the first waves are packed: the
+            # device gets first claim on full waves
+            for t in hthreads:
+                t.start()
+            while live() and any(s_[2] is not None for s_ in streams):
+                for s_ in streams:
+                    ctx, si, entry = s_
+                    if entry is not None:
+                        apply(ctx, si, entry)
+                    s_[2] = pack_run(ctx, si)
+            if harvesting:
+                # this thread joins the harvest until no claimable read
+                # is left, then the harvesters stop
+                with tracer.span("wave.drain"):
+                    while live() and sum(wave_native.steal(ctx["wd"],
+                                                           STEAL_READS)
+                                         for ctx in ctxs):
+                        pass
+                stop_ev.set()
+            with tracer.span("wave.drain"):
+                for ctx in ctxs:
+                    live()
+                    wave_native.drain(ctx["wd"])
+        finally:
+            # the harvesters hold a raw pointer into each driver: they
+            # must exit before the drivers are released, also on an
+            # exception (a thread never started cannot be joined)
+            stop_ev.set()
+            for t in hthreads:
+                if t.ident is not None:
+                    t.join()
+        rows_l, frac_l, off_parts = [], [], [np.zeros(1, np.int64)]
+        total = 0
+        for ctx in ctxs:
+            wd = ctx["wd"]
+            self._stat("ext_tasks_host", wave_native.host_tasks(wd))
+            for name, v in zip(("host_oversize_q", "host_oversize_t",
+                                "host_sched"),
+                               wave_native.host_breakdown(wd)):
+                self._stat(name, v)
+            rows, frac, off = wave_native.finish(wd)
+            rows_l.append(rows)
+            frac_l.append(frac)
+            off_parts.append(off[1:] + total)
+            total += int(off[-1])
+        rows = np.concatenate(rows_l)
+        frac = np.concatenate(frac_l)
+        off = np.concatenate(off_parts)
+        if needs_global:
+            luts = self._luts(all_intvs, sa_flat)
+            py = {}
+            for r in needs_global:
+                chains = chain_read(opt, self.fm, seqs[r], all_intvs[r],
+                                    luts[r])
+                regs: list = []
+                for c in chains:
+                    regionops.mem_chain2aln(opt, self.fm, len(seqs[r]),
+                                            seqs[r], c, regs)
+                py[r] = regs
+                self._stat("ext_tasks_host",
+                           sum(len(c.seeds) for c in chains))
+            rows, frac, off = wave_native.splice(rows, frac, off, py)
+        return rows, frac, off
+
+    # ------------------------------------------------------------------
     def extend_waves(self, seqs: list[np.ndarray], all_chains,
                      names=None) -> list:
         """Stage 4: cross-read wave extension on the device (no dedup).
@@ -609,13 +954,7 @@ class BatchAligner:
             with tracer.span("wave.apply"):
                 bad = bad_rows(desc, rows, max_mat)
                 if bad is not None:
-                    j, f, (qlen, tlen, h0) = bad
-                    ridx = slots[j]
-                    name = f" ({names[ridx]})" if names else ""
-                    raise DeviceResultError(
-                        f"wave row of read {ridx}{name}: {ROW_FIELDS[f]} "
-                        f"= {int(rows[f, j])} is outside what its task "
-                        f"allows (qlen {qlen}, tlen {tlen}, h0 {h0})")
+                    raise_bad_row(bad, rows, slots[bad[0]], names)
                 rows = rows.T.tolist()
                 for i, ridx in enumerate(slots):
                     busy.discard(ridx)

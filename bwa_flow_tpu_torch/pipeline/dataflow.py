@@ -1,7 +1,19 @@
 """Host dataflow runtime: device stages on the main process, host stages
-in a worker pool, batches in a two-deep software pipeline.
+in a worker pool or native code, batches in a two-deep software
+pipeline.
 
-Port of bwa_flow_tpu/pipeline/dataflow.py (its pure-Python route):
+Port of bwa_flow_tpu/pipeline/dataflow.py, both of its routes. On the
+native route (the default; pipeline/batch.py):
+
+  - the main thread collects batch N's seeds and SA values, then starts
+    batch N's chaining and extension (BatchAligner.extend_async) in a
+    worker thread, and runs batch N+1's seed program while it goes;
+  - batch N's packed regions feed the native tails in the tail thread
+    (ops/region_native.py: se_tail_batch; pe_tail_batch, -I included),
+    GIL released; the -V flag and qual-less reads take the Python tail
+    (after the native dedup_batch, for paired-end batches).
+
+On the pure-Python route (`native=False`):
 
   - the device stages (SMEM seeding, SA probes, extension waves) run on
     the main process, which owns the torch device;
@@ -10,7 +22,8 @@ Port of bwa_flow_tpu/pipeline/dataflow.py (its pure-Python route):
     GIL-bound Python, so they run in a process pool; the FM index
     reaches the workers by fork copy-on-write;
   - while batch N's host tail runs in the pool (from a background
-    thread), batch N+1's device work runs on the main thread;
+    thread), batch N+1's chaining and device work run on the main
+    thread, then batch N+2's seed program;
   - finished batches are emitted in order on the main process.
 
 With several devices (`devices`), the batch aligner cuts each batch
@@ -37,6 +50,7 @@ from typing import Callable, Iterable
 
 from ..io.sam import Read
 from ..ops import pe as peops
+from ..ops import region_native
 from ..utils.opts import MemOpt
 from .batch import (BatchAligner, chain_read, check_against_golden,
                     dedup_regs, se_sam)
@@ -90,6 +104,11 @@ def _pe_pair_worker(pes, pairs):
     return out
 
 
+def _is_packed(regs) -> bool:
+    return isinstance(regs, tuple) and len(regs) == 4 \
+        and regs[0] == "packed"
+
+
 def _slices(items, n_slices):
     k = max(1, -(-len(items) // n_slices))
     return [items[i:i + k] for i in range(0, len(items), k)]
@@ -100,16 +119,17 @@ class AlignPipeline:
     batches hold mates interleaved; `pes0` (the -I option) replaces the
     per-batch insert-size estimate. `devices`, a list of torch devices,
     shards every batch over them (BatchAligner); else the run is on
-    `device`. validate_every, validate_sample and device_timeout go to
-    the BatchAligner (one device, every shard, every rank alike);
-    validation runs here, on each validated batch's regions before its
-    tail."""
+    `device`. validate_every, validate_sample, device_timeout, `native`
+    (the route) and `ext_mode` go to the BatchAligner (one device, every
+    shard, every rank alike); validation runs here, on each validated
+    batch's regions before its tail."""
 
     def __init__(self, opt: MemOpt, fm, paired: bool = False,
                  n_workers: int = 0, rg_id: str = "", pes0=None,
                  aligner_kw: dict | None = None, mp_context: str = "fork",
                  device=None, devices=None, validate_every: int = 0,
-                 validate_sample: int = 2, device_timeout: float = 300.0):
+                 validate_sample: int = 2, device_timeout: float = 300.0,
+                 native: bool = True, ext_mode: str | None = None):
         self.opt = opt
         self.fm = fm
         self.paired = paired
@@ -120,7 +140,8 @@ class AlignPipeline:
         _init_worker(opt, fm, rg_id)
         if n_workers > 0:
             # before the device upload below: the workers fork from a
-            # process that holds no index tensors of its own making
+            # process that holds no index tensors of its own making, and
+            # before any harvester, extension or tail thread exists
             ctx = mp.get_context(mp_context)
             self.pool = ctx.Pool(n_workers, initializer=_init_worker,
                                  initargs=(opt, fm, rg_id))
@@ -129,6 +150,7 @@ class AlignPipeline:
                                    validate_every=validate_every,
                                    validate_sample=validate_sample,
                                    device_timeout=device_timeout,
+                                   native=native, ext_mode=ext_mode,
                                    **(aligner_kw or {}))
         except BaseException:
             self.close()
@@ -177,6 +199,17 @@ class AlignPipeline:
         return join
 
     def _tail_se(self, batch, all_regs) -> None:
+        """Native SE tail on packed regions where se_tail_ok holds, else
+        dedup/primary/SAM in the pool."""
+        if _is_packed(all_regs):
+            if region_native.se_tail_ok(self.opt, batch):
+                sams = region_native.se_tail_batch(
+                    self.opt, self.fm, batch, None, self.rg_id,
+                    packed=all_regs[1:])
+                for r, s in zip(batch, sams):
+                    r.sam = s
+                return
+            all_regs = region_native.unpack_regs(*all_regs[1:])
         work = [(r.seq, r.name, r.qual, r.comment, all_regs[i], r.id)
                 for i, r in enumerate(batch)]
         sams = self._run_parts(_se_tail_worker, work)
@@ -184,11 +217,28 @@ class AlignPipeline:
             r.sam = s
 
     def _tail_pe(self, batch, all_regs) -> None:
-        """Dedup in the pool; the insert-size estimate of the batch on the
-        deduped regions (unless `pes0`); then rescue, pairing and SAM in
-        the pool. Pair ids are r1.id >> 1, as on the golden route."""
-        regs = self._run_parts(
-            _dedup_worker, [(r.seq, all_regs[i]) for i, r in enumerate(batch)])
+        """Packed regions (the native route): the native PE tail where
+        pe_tail_ok holds (dedup, insert size unless `pes0`, rescue,
+        pairing, SAM), else the native dedup_batch and the Python pairing
+        below. Otherwise dedup in the pool; the insert-size estimate of
+        the batch on the deduped regions (unless `pes0`); then rescue,
+        pairing and SAM in the pool. Pair ids are r1.id >> 1, as on the
+        golden route."""
+        if _is_packed(all_regs):
+            if region_native.pe_tail_ok(self.opt, batch):
+                sams, _ = region_native.pe_tail_batch(
+                    self.opt, self.fm, batch, None, self.rg_id,
+                    packed=all_regs[1:], pes0=self.pes0)
+                for r, s in zip(batch, sams):
+                    r.sam = s
+                return
+            regs = region_native.dedup_batch(
+                self.opt, self.fm, [r.seq for r in batch],
+                region_native.unpack_regs(*all_regs[1:]))
+        else:
+            regs = self._run_parts(
+                _dedup_worker,
+                [(r.seq, all_regs[i]) for i, r in enumerate(batch)])
         pes = self.pes0 if self.pes0 is not None else peops.mem_pestat(
             self.opt, self.fm.bns.l_pac, regs)
         pairs = []
@@ -207,48 +257,78 @@ class AlignPipeline:
     # -- the pipeline --------------------------------------------------
     def run(self, batches: Iterable[list[Read]],
             emit: Callable[[list[Read]], None]) -> int:
-        """Pipelined batch loop: the next batch's seeding runs right after
-        this batch's seed collect, and each batch's host tail overlaps
-        the next batch's device work. Calls emit(batch) in order with
-        .sam filled; returns reads processed."""
+        """Pipelined batch loop: collect batch N's seeds and SA values;
+        join batch N-1's extension and start its host tail
+        (_finish_batch), which overlaps what follows; start batch N's
+        extension (_extend: on the native route in a worker thread,
+        beside batch N+1's seed program, which runs next on this
+        thread; seeds_dispatch blocks, so on the pure-Python route the
+        order of the two costs no overlap). Calls emit(batch) in order
+        with .sam filled; returns
+        reads processed. On an error, an extension in flight is abandoned
+        (its device waits give up at once) and waited for, since its
+        harvesters hold the driver; then the error is raised."""
         from ..utils.trace import GLOBAL as tracer
         n_processed = 0
         pending = None  # join() of the previous batch's tail
-        prev = None     # batch N-1, extended, waiting for its tail
+        prev = None     # batch N-1: its extension's join
         it = iter(batches)
         cur = next(it, None)
         cur_h = None
         if cur is not None:
             with tracer.span("seed"):
                 cur_h = self.ba.seeds_dispatch([r.seq for r in cur])
-        while cur is not None:
-            seqs = [r.seq for r in cur]
-            nxt = next(it, None)
-            with tracer.span("seed"):
-                intvs = self.ba.seeds_collect(cur_h)
-            with tracer.span("sa"):
-                sa_flat = self.ba.resolve_sa_flat(intvs, cur_h)
-            nxt_h = None
-            if nxt is not None:
+        try:
+            while cur is not None:
+                seqs = [r.seq for r in cur]
+                nxt = next(it, None)
                 with tracer.span("seed"):
-                    nxt_h = self.ba.seeds_dispatch([r.seq for r in nxt])
+                    intvs = self.ba.seeds_collect(cur_h)
+                with tracer.span("sa"):
+                    sa_flat = self.ba.resolve_sa_flat(intvs, cur_h)
+                if prev is not None:
+                    pending = self._finish_batch(prev, pending, emit)
+                    prev = None
+                prev = dict(reads=cur, ext=self._extend(cur, intvs,
+                                                        sa_flat))
+                nxt_h = None
+                if nxt is not None:
+                    with tracer.span("seed"):
+                        nxt_h = self.ba.seeds_dispatch([r.seq for r in nxt])
+                n_processed += len(cur)
+                cur, cur_h = nxt, nxt_h
             if prev is not None:
                 pending = self._finish_batch(prev, pending, emit)
                 prev = None
-            with tracer.span("chain"):
-                chains = self._chains(seqs, intvs, sa_flat)
-            with tracer.span("extend_waves"):
-                regs = self.ba.extend_waves(seqs, chains,
-                                            [r.name for r in cur])
-            prev = dict(reads=cur, regs=regs)
-            n_processed += len(cur)
-            cur, cur_h = nxt, nxt_h
-        if prev is not None:
-            pending = self._finish_batch(prev, pending, emit)
+        except BaseException:
+            if prev is not None and hasattr(prev["ext"], "abandon"):
+                prev["ext"].abandon()
+            raise
         if pending is not None:
             with tracer.span("emit_wait"):
                 emit(pending())
         return n_processed
+
+    def _extend(self, batch, intvs, sa_flat):
+        """Start a batch's chaining and extension; returns its join(). The
+        native route runs both in a worker thread (BatchAligner.
+        extend_async) and its join gives packed regions ("packed", rows,
+        frac, off); the pure-Python route chains in the pool and runs the
+        extension waves here, and its join gives the regions."""
+        from ..utils.trace import GLOBAL as tracer
+        seqs, names = [r.seq for r in batch], [r.name for r in batch]
+        if self.ba.native:
+            join = self.ba.extend_async(seqs, intvs, sa_flat, names)
+
+            def packed():
+                return ("packed",) + join()
+            packed.abandon = join.abandon
+            return packed
+        with tracer.span("chain"):
+            chains = self._chains(seqs, intvs, sa_flat)
+        with tracer.span("extend_waves"):
+            regs = self.ba.extend_waves(seqs, chains, names)
+        return lambda: regs
 
     def _validate_sample(self, batch, regs) -> None:
         """Cross-check an evenly spaced sample of validate_sample reads of
@@ -269,15 +349,24 @@ class AlignPipeline:
                                  f"{ba._batch_no}")
 
     def _finish_batch(self, prev, pending, emit):
-        """Validate `prev` every validate_every batches, emit the batch
+        """Join `prev`'s extension (on the native route its regions come
+        packed: ("packed", rows, frac, off)), validate `prev` every
+        validate_every batches (on its unpacked regions), emit the batch
         before it and start `prev`'s tail."""
         from ..utils.trace import GLOBAL as tracer
         ba = self.ba
+        if ba.native:
+            with tracer.span("extend_waves"):
+                regs = prev["ext"]()
+        else:
+            regs = prev["ext"]()
         if ba.validate_every:
             ba._batch_no += 1
             if ba._batch_no % ba.validate_every == 0:
-                self._validate_sample(prev["reads"], prev["regs"])
+                self._validate_sample(
+                    prev["reads"], region_native.unpack_regs(*regs[1:])
+                    if _is_packed(regs) else regs)
         if pending is not None:
             with tracer.span("emit_wait"):
                 emit(pending())
-        return self._tail_async(prev["reads"], prev["regs"])
+        return self._tail_async(prev["reads"], regs)

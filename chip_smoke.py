@@ -2,12 +2,22 @@
 
     python3 chip_smoke.py
 
+`mem` has two routes (pipeline/batch.py): the native route, which the
+CLI takes, with its extension modes host (the default: harvester
+threads run every extension task, no ksw kernel) and waves (device
+waves beside the harvesters); and the pure-Python route
+(cli._mem(..., native=False), python_route() here). Phases 3, 4, 8 and
+9 hold the pure-Python route; phases 6 and 7 run the native route with
+--ext-mode waves; phase 10 runs the native route in both modes.
+
 Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
-     the torch/CUDA versions, and builds every CUDA kernel of the main
-     paths from bwa_flow_tpu_torch/csrc/ (one nvcc per source, all
-     started together); prints each kernel's registers, shared memory
-     and spills as ptxas reports them.
+     the torch/CUDA versions and the host's CPU count, and builds every
+     CUDA kernel of the main paths from bwa_flow_tpu_torch/csrc/ and
+     the host libraries of the native route from csrc/host/ (one nvcc or
+     c++ per source, all started together, each timed); prints each
+     kernel's registers, shared memory and spills as ptxas reports
+     them.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
@@ -23,15 +33,16 @@ Phases:
      with 2^23 added to h0 (its wide-score path).
   3. the single-end path: a 4.6 Mbp repeat-realistic genome and 8192 x
      151 bp reads (1% substitutions) from fixed seeds; `index`, then
-     `mem -t 8 --batch-reads 4096` on the card through the CLI (int32
-     kernel). Every read must have exactly one primary record, >= 95%
+     `mem -t 8 --batch-reads 4096` on the card through the CLI on the
+     pure-Python route (int32 kernel). Every read must have exactly one primary record, >= 95%
      mapped, and the int32 kernel must have launched. Then a 256-read
      subset on the card and with --no-device (the port's host golden):
      the two SAMs must be byte-identical apart from @PG.
   4. the paired-end path on the same genome: 8192 FR pairs of 2 x 151
      bp, insert size N(400, 40), 1% substitutions; `mem -t 8
-     --batch-reads 4096 ref.fa r1.fq r2.fq` with BWA_TPU_EXTEND16=1 (set
-     for this phase only), so the waves run the int16 kernel. One
+     --batch-reads 4096 ref.fa r1.fq r2.fq` on the pure-Python route
+     with BWA_TPU_EXTEND16=1 (set for this phase only), so the waves run
+     the int16 kernel. One
      primary record per read, >= 95% of reads mapped, >= 90% of pairs
      proper, the int16 kernel launched and the int32 one not; a 256-pair
      subset on the card equals its --no-device SAM apart from @PG.
@@ -42,8 +53,8 @@ Phases:
      version, timed, with its bound; and the time a target row costs it
      (row_cost_ns), the latency that sets its time on the path.
   6. the sorted-BAM path: phase 4's paired-end run again with `--sort`
-     (default 512 buckets) and BWA_TPU_EXTEND16 unset, so its waves run
-     the int32 kernel. The int32 kernel must have launched and the int16
+     (default 512 buckets), on the native route with --ext-mode waves
+     and BWA_TPU_EXTEND16 unset, so its waves run the int32 kernel. The int32 kernel must have launched and the int16
      one not; the BAM must inflate with gzip and end in the BGZF EOF
      block, carry the index's contigs, have non-decreasing sort keys
      with unmapped records last, and hold the same multiset of records
@@ -52,7 +63,7 @@ Phases:
      alignment, bucket writes, merge.
   7. two ranks on the one card: `mem` of phase 3's reads in one process
      (batches of 1024 reads: -t 4 -K 38656 cuts the FASTQ every 1024 x
-     151 bp), then as two processes of `python -m bwa_flow_tpu_torch mem
+     151 bp; the native route, --ext-mode waves), then as two processes of `python -m bwa_flow_tpu_torch mem
      --nprocs 2 --dist pull` (gloo process group and the pull work queue
      on free local ports). Both must exit 0 having launched the int32
      kernel, both parts must hold records, and their union must equal
@@ -68,14 +79,16 @@ Phases:
      the sharded seed + coupled-extension step with its psum checks,
      then the production pipeline with two shards, SAM equal to one
      device); entry()'s step on the card against the CPU; then phase
-     3's single-end run over the shards through the CLI's _mem: every
-     shard must have run waves on the int32 kernel, and the records
+     3's single-end run over the shards through the CLI's _mem on the
+     pure-Python route: every shard must have run waves on the int32
+     kernel, and the records
      must equal phase 3's full.sam byte for byte.
   9. the paths no earlier phase runs, and the checks that make a run
-     fail: the first 2048 of phase 3's reads on the wide int64 seed
+     fail, on the pure-Python route (its injections target its wave
+     buffer; phase 10 injects on the native route): the first 2048 of phase 3's reads on the wide int64 seed
      machine (FORCE_WIDE) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
      the fused LF walk), records equal to the default path's in the same
-     phase; -I 400,40 on phase 4's pairs (int16 kernel): 256 pairs equal
+     phase; -I 400,40 on phase 4's pairs (int16 kernel): 64 pairs equal
      to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
      phase 3's reads (SAM == full.sam, one validation a batch), the same
      run with the watchdog off (--device-timeout 0) and on, in turns (its
@@ -85,10 +98,35 @@ Phases:
      ~10 s spin kernel queued before a wave's fetch under
      --device-timeout 2: TimeoutError within 2-5 s in process, and a CLI
      subprocess that must exit non-zero.
- 10. one JSON line describing the kernels (ms, plain_ms and bound_ms at
-     the path's mean wave; *_b4096 at B=4096; launches on each path),
-     the device line, and as the last line {"ok": true, "device":
-     {...}}.
+ 10. the native route (the CLI's default): phase 3's reads and phase
+     4's pairs at -t 8 in batches of 4096 with --ext-mode host (no ksw
+     launch, no device task: the harvesters run every task) and
+     --ext-mode waves (device waves: int32 for the reads, int16 for the
+     pairs with BWA_TPU_EXTEND16=1), each SAM equal to phase 3's
+     full.sam or phase 4's pe.sam byte for byte apart from @PG; phase
+     3's reads over two shards of the one card in waves mode
+     (AlignPipeline(devices=[cuda:0, cuda:0]) through _mem), equal to
+     full.sam; and a wave row corrupted before the native driver's
+     apply (lqle = -3), which must raise DeviceResultError naming its
+     wave lane; and a ~10 s spin kernel queued as a CLI subprocess's
+     second batch's extension starts (--ext-mode waves, batches of
+     512, --device-timeout 2): it must exit non-zero with [E::mem]
+     within the timeout plus 2 s (the extension worker's wait is
+     abandoned, not waited out). Each run prints its wall, rate,
+     spans, the native driver's counters, and each kernel's launches
+     and device time. In each waves run every kernel call's inputs are
+     copied on the card; afterwards, for each shape class (qmax, tmax)
+     the run launched, the launch nearest the class's mean width is
+     run again against the plain version on the same inputs (tolerance
+     0), timed, with its bound.
+ 11. one JSON line describing the kernels (launches on the native
+     route's waves runs, with ms, plain_ms and bound_ms at that path's
+     shapes: the launch-weighted mean over its classes, each class
+     under "native_classes"; python_path_* at the pure-Python route's
+     mean wave; *_b4096 at B=4096; launches on each path) and, under
+     "host_libraries", the native route's host libraries and their
+     build seconds; the device line; and as the last line {"ok": true,
+     "device": {...}}.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -123,6 +161,7 @@ RANK_TIMEOUT = 600           # seconds a rank of phase 7 may take
 LD_SHARDS = 2                # shards of phase 8's one process
 P9_READS = 2048              # reads of phase 9's wide / no-dense-SA runs
 P9_PAIRS = 2048              # pairs of phase 9's -I share check
+P9_I_PAIRS = 64              # pairs of phase 9's -I device vs --no-device
 STALL_S = 10                 # seconds phase 9's spin kernel holds the card
 STALL_TIMEOUT = 2            # --device-timeout of phase 9's stalls
 SPIN_HZ = 1.98e9             # the H100 SXM's boost clock: _sleep cycles/s
@@ -694,10 +733,12 @@ def row_cost_ns(device, kern, plain, qlen: int = 130,
 
 
 @contextlib.contextmanager
-def timed_launches():
+def timed_launches(capture: bool = False):
     """While the block runs, record CUDA events around every call of the
-    kernel wrappers; yields name -> [(start, end, tasks)]. The wrappers
-    (and their launch counts) run unchanged inside."""
+    kernel wrappers; yields name -> [(start, end, tasks, inputs)]. With
+    capture, inputs is a copy of the call's arguments (tensors cloned on
+    the card before the start event), else None. The wrappers (and their
+    launch counts) run unchanged inside."""
     import torch
 
     from bwa_flow_tpu_torch.ops import extend_cuda
@@ -709,12 +750,14 @@ def timed_launches():
         events = log.setdefault(name, [])
 
         def timed(*a, _fn=fn, _events=events):
+            kept = tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                         for x in a) if capture else None
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
             out = _fn(*a)
             e1.record()
-            _events.append((e0, e1, int(a[2].shape[0])))
+            _events.append((e0, e1, int(a[2].shape[0]), kept))
             return out
         setattr(extend_cuda, attr, timed)
     try:
@@ -754,8 +797,8 @@ def launch_times(log: dict, tag: str) -> dict:
     for name, events in log.items():
         if not events:
             continue
-        total = sum(e0.elapsed_time(e1) for e0, e1, _ in events)
-        tasks = sum(b for _, _, b in events)
+        total = sum(e0.elapsed_time(e1) for e0, e1, _, _ in events)
+        tasks = sum(b for _, _, b, _ in events)
         out[name] = dict(device_ms=total, launches=len(events),
                          tasks_per_launch=tasks / len(events))
         print(f"[{tag}] {name} on the path: {len(events)} launches, "
@@ -765,7 +808,49 @@ def launch_times(log: dict, tag: str) -> dict:
     return out
 
 
+def build_everything(_build) -> dict:
+    """Build both CUDA kernels and the three host libraries, one thread
+    (one nvcc or c++) each, all at once; prints and returns each build's
+    seconds (0 when it was built already)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {"ksw_extend": lambda: _build.build_all(["ksw_extend"]),
+            "ksw_extend16": lambda: _build.build_all(["ksw_extend16"])}
+    for n in _build.HOST_LIBS:
+        jobs[n] = lambda n=n: _build.build_host([n])
+
+    def timed(item):
+        t0 = time.perf_counter()
+        item[1]()
+        return item[0], time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        secs = dict(ex.map(timed, jobs.items()))
+    for n, dt in secs.items():
+        src = f"csrc/{n}.cu" if n.startswith("ksw") else \
+            f"csrc/host/{n}.cpp"
+        print(f"[build] {src}: {dt:.2f} s")
+    print(f"[build] all {len(jobs)} in parallel: "
+          f"{time.perf_counter() - t0:.2f} s")
+    return secs
+
+
 # ----------------------------------------------------------- main path
+
+@contextlib.contextmanager
+def python_route():
+    """While the block runs, in-process `mem` runs take the pure-Python
+    route (cli._mem(..., native=False))."""
+    import functools
+
+    from bwa_flow_tpu_torch import cli
+    real = cli._mem
+    cli._mem = functools.partial(real, native=False)
+    try:
+        yield
+    finally:
+        cli._mem = real
+
 
 def _records(path: Path) -> list[list[str]]:
     return [l.split("\t") for l in path.read_text().splitlines()
@@ -777,8 +862,8 @@ def _body(p: Path) -> list[str]:
 
 
 def phase_main_path(work: Path, device: str) -> dict:
-    """index + single-end mem through the port's CLI (int32 kernel);
-    returns the run's numbers."""
+    """index + single-end mem through the port's CLI on the pure-Python
+    route (int32 kernel); returns the run's numbers."""
     import torch
 
     from bwa_flow_tpu_torch import cli
@@ -861,8 +946,9 @@ def phase_main_path(work: Path, device: str) -> dict:
 
 
 def phase_pe_path(work: Path, device: str) -> dict:
-    """Paired-end mem through the port's CLI with BWA_TPU_EXTEND16=1
-    (the int16 kernel); returns the run's numbers."""
+    """Paired-end mem through the port's CLI on the pure-Python route
+    with BWA_TPU_EXTEND16=1 (the int16 kernel); returns the run's
+    numbers."""
     import torch
 
     from bwa_flow_tpu_torch import cli
@@ -948,8 +1034,9 @@ def phase_pe_path(work: Path, device: str) -> dict:
 
 
 def phase_sort_path(work: Path, device: str) -> dict:
-    """Phase 4's paired-end run with --sort on the int32 kernel; checks
-    the BAM and returns the run's numbers."""
+    """Phase 4's paired-end run with --sort on the native route's device
+    waves (--ext-mode waves), int32 kernel; checks the BAM and returns
+    the run's numbers."""
     import gzip
     from collections import Counter
 
@@ -969,7 +1056,8 @@ def phase_sort_path(work: Path, device: str) -> dict:
             timed_calls(sort, "merge_sorted_bam") as merge, \
             timed_calls(sort.BucketSort, "write_sam_text") as writes:
         assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
-                         "--device", device, "--sort", "--temp-dir",
+                         "--device", device, "--ext-mode", "waves",
+                         "--sort", "--temp-dir",
                          str(work / "sort_tmp"), "-o", str(out), ref,
                          str(work / "r1.fq"), str(work / "r2.fq")]) == 0
     dt = time.perf_counter() - t0
@@ -1052,7 +1140,7 @@ def phase_two_ranks(work: Path, device: str) -> dict:
     # -K x -t bases a FASTQ batch: exactly RANK_BATCH reads of READ_LEN
     base = ["-t", "4", "-K", str(RANK_BATCH * READ_LEN // 4),
             "--batch-reads", str(RANK_BATCH), "--disable-markdup",
-            "--device", device]
+            "--device", device, "--ext-mode", "waves"]
     extend_cuda.n_launches = 0
     extend_cuda.n_launches16 = 0
     t0 = time.perf_counter()
@@ -1227,7 +1315,7 @@ def phase_local_devices(work: Path, device: str, n_shards: int) -> dict:
     tracer.counts.clear()
     t0 = time.perf_counter()
     assert cli._mem(args, argv, cli.build_opt(args), 0, 1,
-                    devices=devices) == 0
+                    devices=devices, native=False) == 0
     dt = time.perf_counter() - t0
     launches, launches16 = extend_cuda.n_launches, extend_cuda.n_launches16
     st = dict(cli.last_run_stats)
@@ -1349,7 +1437,7 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     no dense SA (BWA_TPU_DENSE_SA_MAX=0: the seed program's fused LF
     walk, and resolve_sa_flat's walks of the redone reads), against the
     default path in the same phase; then -I 400,40 on phase 4's pairs
-    (int16 kernel): 256 pairs equal to --no-device, and the mapped and
+    (int16 kernel): 64 pairs equal to --no-device, and the mapped and
     proper shares of P9_PAIRS pairs."""
     import torch
 
@@ -1401,10 +1489,11 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
 
     # -I: pairing with a fixed insert size does not depend on the batch
     pe = ["-I", f"{INSERT_MEAN},{INSERT_SD}", "--disable-markdup"]
-    sub = [str(work / "sub1.fq"), str(work / "sub2.fq")]
+    sub = [str(_head_fastq(work / f"sub{k}.fq", work / f"p9_sub{k}.fq",
+                           P9_I_PAIRS)) for k in (1, 2)]
     os.environ["BWA_TPU_EXTEND16"] = "1"
     try:
-        runs["insert_sub"] = _cli_run(f"-I on {N_SUB} pairs", base + pe + [
+        runs["insert_sub"] = _cli_run(f"-I on {P9_I_PAIRS} pairs", base + pe + [
             "-o", str(work / "p9_I_dev.sam"), ref] + sub)
         t0 = time.perf_counter()
         assert cli.main(["mem", "--no-device"] + pe + [
@@ -1418,9 +1507,9 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
         del os.environ["BWA_TPU_EXTEND16"]
     if _body(work / "p9_I_dev.sam") != _body(work / "p9_I_host.sam"):
         raise SystemExit(f"-I: the device SAM differs from --no-device on "
-                         f"{N_SUB} pairs")
+                         f"{P9_I_PAIRS} pairs")
     print(f"[p9] -I {INSERT_MEAN},{INSERT_SD}: device SAM == --no-device "
-          f"SAM on {N_SUB} pairs (--no-device {t_host:.1f} s)")
+          f"SAM on {P9_I_PAIRS} pairs (--no-device {t_host:.1f} s)")
     mapped = proper = 0
     for f in _records(work / "p9_I.sam"):
         flag = int(f[1])
@@ -1440,12 +1529,14 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     return runs
 
 
-# a `mem` run whose second batch's first wave fetch finds the card held
-# by a spin kernel of argv[1] cycles; prints when it was queued
+# a `mem` run on the pure-Python route whose second batch's first wave
+# fetch finds the card held by a spin kernel of argv[1] cycles; prints
+# when it was queued
 _STALL_SCRIPT = """\
-import sys, time, torch
+import functools, sys, time, torch
 from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.pipeline import batch
+cli._mem = functools.partial(cli._mem, native=False)
 fetch, ext = batch.BatchAligner.fetch, batch.BatchAligner.extend_waves
 armed = []
 def stalled_fetch(self, t):
@@ -1656,6 +1747,251 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     return runs
 
 
+# ----------------------------------------------------------- phase 10
+
+def _native_run(tag: str, argv: list, extend16: bool = False,
+                devices=None, capture: bool = False) -> dict:
+    """One in-process `mem` run on the native route (the CLI's own, or
+    _mem over `devices`), with the kernels' counts and the spans set to
+    0 just before it and CUDA events around every kernel call; prints
+    and returns its wall s, rate, spans, the native driver's counters,
+    and each kernel's launches and device ms. With capture, each kernel
+    is then held against its plain version at the run's shapes
+    (native_shapes), under "shapes"."""
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
+
+    if extend16:
+        os.environ["BWA_TPU_EXTEND16"] = "1"
+    else:
+        os.environ.pop("BWA_TPU_EXTEND16", None)
+    extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+    tracer.totals.clear()
+    tracer.counts.clear()
+    try:
+        t0 = time.perf_counter()
+        with timed_launches(capture) as log:
+            if devices is None:
+                assert cli.main(["mem"] + argv) == 0
+            else:
+                args = cli._mem_parser().parse_args(argv)
+                assert cli._mem(args, argv, cli.build_opt(args), 0, 1,
+                                devices=devices) == 0
+        dt = time.perf_counter() - t0
+    finally:
+        os.environ.pop("BWA_TPU_EXTEND16", None)
+    path = launch_times(log, f"p10 {tag}")
+    st = dict(cli.last_run_stats)
+    spans = {k: round(v, 3) for k, v in sorted(tracer.totals.items())}
+    pairs = len([a for a in argv if a.endswith(".fq")]) == 2
+    n = N_PAIRS if pairs else N_READS
+    out = dict(wall_s=dt, rate=n / dt, launches=extend_cuda.n_launches,
+               launches16=extend_cuda.n_launches16, stats=st, spans=spans,
+               device_ms={k: v["device_ms"] for k, v in path.items()})
+    keys = ("waves", "ext_tasks_device", "ext_tasks_host", "host_oversize_q",
+            "host_oversize_t", "host_sched", "band_retries")
+    print(f"[p10] {tag}: {dt:.2f} s, {n / dt:.1f} "
+          f"{'pairs' if pairs else 'reads'}/s (index load included); "
+          f"{', '.join(f'{k} {st[k]}' for k in keys)}; ksw_extend2 "
+          f"launches {out['launches']}, ksw_extend2_i16 "
+          f"{out['launches16']}; device ms {out['device_ms']}")
+    print(f"[p10] {tag} spans (host wall clock, s): {json.dumps(spans)}")
+    if capture:
+        out["shapes"] = native_shapes(log)
+    return out
+
+
+def native_shapes(log: dict) -> dict:
+    """Each kernel at the native route's own shapes: for each (qmax,
+    tmax) class its waves launched with, the launch of this run whose
+    width is nearest the class's mean, its inputs as captured
+    (timed_launches(capture=True)), against the plain version on the
+    same inputs (tolerance 0), timed, with its bound. Returns per kernel
+    the classes and their launch-weighted means: the time, plain time
+    and bound of one launch of this path."""
+    import torch
+    kernels = _kernels()
+    out = {}
+    for name, events in log.items():
+        if not events:
+            continue
+        kern, plain = kernels[name]
+        classes: dict = {}
+        for _, _, b, a in events:
+            classes.setdefault((a[0], a[1]), []).append((b, a))
+        rows = []
+        for (qm, tm), launches in sorted(classes.items()):
+            mean_b = sum(b for b, _ in launches) / len(launches)
+            b, a = min(launches, key=lambda x: abs(x[0] - mean_b))
+            stats: dict = {}
+            want = plain(*a, stats=stats)
+            got = kern(*a)
+            torch.cuda.synchronize()
+            err, bad = _diff(got, want)
+            if bad:
+                raise SystemExit(f"{name} disagrees with its plain version "
+                                 f"on a native wave at ({qm}, {tm}), B={b}: "
+                                 f"{bad} values")
+            ms = _time_ms(lambda: kern(*a), 200, fill=True)
+            plain_ms = _time_ms(lambda: plain(*a), 1)
+            bd = _bound(name, list(a[2:7]), stats["cells"])
+            rows.append(dict(qmax=qm, tmax=tm, launches=len(launches),
+                             mean_B=mean_b, B=b, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, **bd))
+            print(f"[p10] {name} at ({qm}, {tm}): {len(launches)} launches, "
+                  f"mean B {mean_b:.1f}; a wave of B={b} from the run: "
+                  f"mismatching values {bad} vs plain, max |err| {err}; "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}), "
+                  f"{bd['cells']} cells")
+        n = sum(r["launches"] for r in rows)
+        out[name] = dict(classes=rows, **{
+            k: sum(r["launches"] * r[k] for r in rows) / n
+            for k in ("ms", "plain_ms", "bound_ms")},
+            bound_by=max(rows, key=lambda r: r["launches"] * r["bound_ms"]
+                         )["bound_by"],
+            max_abs_err=max(r["max_abs_err"] for r in rows))
+    return out
+
+
+# a `mem` run on the native route (--ext-mode waves) whose second batch's
+# extension starts behind a spin kernel of argv[1] cycles on the card;
+# prints when the spin kernel was queued
+_NATIVE_STALL_SCRIPT = """\
+import sys, time, torch
+from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.pipeline import batch
+start = batch.BatchAligner.extend_async
+calls = []
+def stall(self, *a, **k):
+    calls.append(1)
+    if len(calls) == 2:
+        torch.cuda._sleep(int(sys.argv[1]))
+        print(f"[stall] queued at {time.time():.3f}", file=sys.stderr,
+              flush=True)
+    return start(self, *a, **k)
+batch.BatchAligner.extend_async = stall
+cli.entry_main(sys.argv[2:])
+"""
+
+
+def phase_native_route(work: Path, device: str) -> dict:
+    """The native route at phase 3's and phase 4's full width: host and
+    waves modes, single-end and paired-end, each SAM equal to the
+    pure-Python route's; two shards of the one card in waves mode; a
+    corrupted wave row before the native apply."""
+    import torch
+
+    from bwa_flow_tpu_torch.pipeline import batch
+    from bwa_flow_tpu_torch.pipeline.batch import DeviceResultError
+
+    ref = str(work / "ref.fa")
+    se = [str(work / "reads.fq")]
+    pe = [str(work / "r1.fq"), str(work / "r2.fq")]
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    ncpu = os.cpu_count() or 2
+    print(f"[p10] host CPUs {ncpu}: harvester threads {max(1, ncpu - 1)} "
+          f"in host mode, {max(0, min(2, ncpu - 2))} in waves mode")
+    runs: dict = {}
+    for tag, fq, mode, want, e16 in (
+            ("se_host", se, "host", "full.sam", False),
+            ("se_waves", se, "waves", "full.sam", False),
+            ("pe_host", pe, "host", "pe.sam", False),
+            ("pe_waves", pe, "waves", "pe.sam", True)):
+        out = work / f"p10_{tag}.sam"
+        runs[tag] = r = _native_run(
+            tag, base + ["--ext-mode", mode, "-o", str(out), ref] + fq,
+            extend16=e16, capture=mode == "waves")
+        if _body(out) != _body(work / want):
+            raise SystemExit(f"phase 10 {tag}: the SAM differs from "
+                             f"{want}")
+        st = r["stats"]
+        if mode == "host":
+            ok = r["launches"] == r["launches16"] == 0 \
+                and st["ext_tasks_device"] == 0 and st["waves"] == 0
+        else:
+            kern = r["launches16"] if e16 else r["launches"]
+            other = r["launches"] if e16 else r["launches16"]
+            ok = kern > 0 and other == 0 and st["ext_tasks_device"] > 0
+        if not ok:
+            raise SystemExit(f"phase 10 {tag}: launches "
+                             f"{r['launches']} + {r['launches16']} "
+                             f"(int16), device tasks "
+                             f"{st['ext_tasks_device']}")
+        print(f"[p10] {tag}: SAM == {want} (@PG aside)")
+
+    devs = [torch.device(device, 0)] * LD_SHARDS
+    out = work / "p10_shards.sam"
+    runs["shards"] = r = _native_run(
+        f"{LD_SHARDS} shards of {devs[0]}, waves",
+        base + ["--ext-mode", "waves", "-o", str(out), ref] + se,
+        devices=devs)
+    shards = r["stats"]["shards"]
+    for i, sh in enumerate(shards):
+        print(f"[p10] shard {i} on {sh['device']}: seed_s "
+              f"{sh['seed_s']:.3f}, waves {sh['waves']}, device tasks "
+              f"{sh['ext_tasks_device']}, ksw_extend2 launches "
+              f"{sh['launches']}")
+    if _body(out) != _body(work / "full.sam"):
+        raise SystemExit("phase 10: the two-shard SAM differs from "
+                         "full.sam")
+    if len(shards) != LD_SHARDS or any(sh["launches"] <= 0
+                                       for sh in shards):
+        raise SystemExit("phase 10: a shard launched no ksw_extend2")
+    runs["shards"]["shard_launches"] = [sh["launches"] for sh in shards]
+    print("[p10] two shards: SAM == full.sam (@PG aside)")
+
+    # a wave row outside its task's range, before the native apply
+    fq = str(_head_fastq(work / "reads.fq", work / "p10_inject.fq",
+                         P9_READS))
+    real = batch.seed_extend_desc_batch
+
+    def corrupt(*a, **k):
+        rows = real(*a, **k)
+        rows[1, 0] = -3   # lqle of the wave's first lane
+        return rows
+    batch.seed_extend_desc_batch = corrupt
+    try:
+        err = _failing_run(base + ["--ext-mode", "waves", "-o",
+                                   str(work / "p10_inject.sam"), ref, fq])
+    finally:
+        batch.seed_extend_desc_batch = real
+    if not isinstance(err, DeviceResultError) or "wave lane 0" not in \
+            str(err) or "lqle = -3" not in str(err):
+        raise SystemExit(f"phase 10: the corrupted row gave {err!r}")
+    print(f"[p10] lqle = -3 in a native wave: DeviceResultError: {err}")
+
+    # a hung card in a CLI subprocess on the native route: the main
+    # thread's wait times out, the extension worker's wait is abandoned
+    script = work / "native_stall_run.py"
+    script.write_text(_NATIVE_STALL_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, str(script), str(int(STALL_S * SPIN_HZ)), "mem",
+         "-t", "8", "--batch-reads", str(P9_READS // 4), "--ext-mode",
+         "waves", "--device", device, "--device-timeout",
+         str(STALL_TIMEOUT), "-o", str(work / "p10_stall.sam"), ref, fq],
+        capture_output=True, text=True, env=env, timeout=300)
+    t_end = time.time()
+    queued = [float(l.split()[-1]) for l in r.stderr.splitlines()
+              if l.startswith("[stall] queued at ")]
+    errs = [l for l in r.stderr.splitlines() if l.startswith("[E::mem]")]
+    after = t_end - queued[0] if queued else float("nan")
+    print(f"[p10] stalled native CLI subprocess (--ext-mode waves, "
+          f"--device-timeout {STALL_TIMEOUT}): exit {r.returncode}, wall "
+          f"{t_end - t0:.2f} s, out {after:.2f} s after the spin kernel "
+          f"was queued; {errs[:1]}")
+    if r.returncode == 0 or not queued or not errs \
+            or not after <= STALL_TIMEOUT + 2:
+        raise SystemExit(f"the stalled native run did not fail with "
+                         f"[E::mem] within {STALL_TIMEOUT + 2} s: "
+                         f"{r.stderr[-2000:]}")
+    runs["stall_cli"] = dict(wall_s=t_end - t0, after_stall_s=after)
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1673,11 +2009,9 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
         else "unknown"
     print(f"[device] {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    _build.build_all(["ksw_extend", "ksw_extend16"])
-    print(f"[build] csrc/ksw_extend.cu + csrc/ksw_extend16.cu (one nvcc "
-          f"each, in parallel): {time.perf_counter() - t0:.2f} s")
+          f"{torch.version.cuda}, python {sys.version.split()[0]}; host "
+          f"CPUs {os.cpu_count()}")
+    build_s = build_everything(_build)
     for name in ("ksw_extend", "ksw_extend16"):
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("Compiling entry", "spill", "Used")):
@@ -1702,8 +2036,9 @@ def main() -> int:
         return out
     kres = timed_phase("2 kernels", phase_kernels, genome, cuda)
     timed_phase("2 edge mix", phase_edge_mix, cuda, kres)
-    mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
-    pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
+    with python_route():
+        mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
+        pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
     timed_phase("5 mean waves", phase_wave_shape, genome, cuda, kres,
                 {"ksw_extend2": mres["path"],
                  "ksw_extend2_i16": pres["path"]})
@@ -1713,10 +2048,12 @@ def main() -> int:
                        "cuda")
     lres = timed_phase("8 local devices", phase_local_devices, WORK, "cuda",
                        LD_SHARDS)
-    yres = timed_phase("9 bypassed paths", phase_bypassed_paths, WORK,
-                       "cuda")
-    vres = timed_phase("9 validation and watchdog", phase_validation_watchdog,
-                       WORK, "cuda", mres)
+    with python_route():
+        yres = timed_phase("9 bypassed paths", phase_bypassed_paths, WORK,
+                           "cuda")
+        vres = timed_phase("9 validation and watchdog",
+                           phase_validation_watchdog, WORK, "cuda", mres)
+    nres = timed_phase("10 native route", phase_native_route, WORK, "cuda")
     launches_by_path = {
         "ksw_extend2": {"single_end": mres["launches"],
                         "sort": sres["launches"],
@@ -1730,31 +2067,50 @@ def main() -> int:
                         "p9_wide": yres["wide"]["launches"],
                         "p9_no_dense_sa": yres["no_dense_sa"]["launches"],
                         "p9_validate": vres["validate"]["launches"],
-                        "p9_timeout0": vres["timeout0"]["launches"]},
+                        "p9_timeout0": vres["timeout0"]["launches"],
+                        "native_se_host": nres["se_host"]["launches"],
+                        "native_se_waves": nres["se_waves"]["launches"],
+                        "native_shards": nres["shards"]["launches"],
+                        "native_shards_each":
+                            nres["shards"]["shard_launches"]},
         "ksw_extend2_i16": {"paired_end": pres["launches"],
                             "p9_insert_sub": yres["insert_sub"]["launches16"],
-                            "p9_insert": yres["insert"]["launches16"]}}
+                            "p9_insert": yres["insert"]["launches16"],
+                            "native_pe_host": nres["pe_host"]["launches16"],
+                            "native_pe_waves":
+                                nres["pe_waves"]["launches16"]}}
+    # the native route's waves runs: the launches of the CLI's route
+    native = {"ksw_extend2": nres["se_waves"], "ksw_extend2_i16":
+              nres["pe_waves"]}
 
-    # ms, plain_ms and bound_ms at the mean wave of the kernel's path;
-    # *_b4096 at the widest wave
+    # launches, ms, plain_ms and bound_ms of the native route's waves runs
+    # (the CLI's route), at its shapes; python_path_* at the mean wave of
+    # the pure-Python route's run; *_b4096 at the widest wave
     kernels = []
     for name, source, body, res in (
             ("ksw_extend2", "ksw_extend.cu", "_make_kernel", mres),
             ("ksw_extend2_i16", "ksw_extend16.cu", "_make_kernel16", pres)):
         k = kres[name]
+        nat = native[name]["shapes"][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"bwa_flow_tpu_torch/csrc/{source}",
             "replaces": "bwa_flow_tpu/ops/extend_pallas.py:550",
             "replaces_kernel": f"bwa_flow_tpu/ops/extend_pallas.py::{body}",
-            "checked": True, "launches": res["launches"],
-            "max_abs_err": k["max_abs_err"], "ms": k["path_ms"],
-            "plain_ms": k["path_plain_ms"], "bound_ms": k["path_bound_ms"],
-            "bound_by": k["path_bound_by"], "library_ms": None,
-            "B": k["path_B"], "cells": k["path_cells"],
-            "bytes": k["path_bytes"],
+            "checked": True, "launches": (
+                native[name]["launches"] if name == "ksw_extend2"
+                else native[name]["launches16"]),
+            "max_abs_err": max(k["max_abs_err"], nat["max_abs_err"]),
+            "ms": nat["ms"], "plain_ms": nat["plain_ms"],
+            "bound_ms": nat["bound_ms"], "bound_by": nat["bound_by"],
+            "library_ms": None, "native_classes": nat["classes"],
+            "python_path_ms": k["path_ms"],
+            "python_path_plain_ms": k["path_plain_ms"],
+            "python_path_bound_ms": k["path_bound_ms"],
+            "python_path_B": k["path_B"],
             "launches_by_path": launches_by_path[name],
             "path_device_ms": res["path"]["device_ms"],
+            "native_path_device_ms": native[name]["device_ms"].get(name),
             "row_ns": k["row_ns"], "other_kernel_ms": k["path_other_ms"],
             "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
             "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
@@ -1762,7 +2118,11 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     bres["max_abs_err"])
     kernels[0]["seed_extend_batch_ms_b4096"] = bres["ms"]
-    print(json.dumps({"kernels": kernels}))
+    host_libs = [{"name": n, "source":
+                  f"bwa_flow_tpu_torch/csrc/host/{n}.cpp",
+                  "replaces": f"native/{n}.cpp", "build_s": build_s[n]}
+                 for n in _build.HOST_LIBS]
+    print(json.dumps({"kernels": kernels, "host_libraries": host_libs}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,13 @@ byte-equal, single-end and paired-end mem SAM equal apart from @PG
 (paired-end also with the int16 extension core and with -I),
 --no-device equal too, and so are runs sharded over CPU devices with
 --local-devices, and validated runs under the hang watchdog; `--sort`
-BAMs equal after decompression. Runs that cannot be right (a hung
-device, a corrupted result) exit non-zero, and --ext-mode host is
-refused."""
+BAMs equal after decompression. `mem` takes the native route, in
+--ext-mode host by default (BWA_TPU_EXT too) and in --ext-mode waves;
+tests that hold the pure-Python route call cli._mem with native=False.
+Runs that cannot be right (a hung device, a corrupted result) exit
+non-zero."""
 
+import functools
 import gzip
 import json
 import os
@@ -24,6 +27,7 @@ import torch
 from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.io import bam
 from bwa_flow_tpu_torch.ops import extend_torch
+from bwa_flow_tpu_torch.pipeline import batch as batchmod
 from bwa_flow_tpu_torch.pipeline import sort
 from bwa_flow_tpu_torch.pipeline.batch import BatchAligner, DeviceResultError
 
@@ -92,6 +96,25 @@ def workdir(tmp_path_factory):
     return d
 
 
+def _python_route(monkeypatch):
+    """`mem` on the pure-Python route for the rest of the test."""
+    monkeypatch.setattr(cli, "_mem", functools.partial(cli._mem,
+                                                       native=False))
+
+
+def _waves_carry_every_task(monkeypatch):
+    """The native route's --ext-mode waves with no host drain and no
+    harvesters, so that the device waves run every task that fits even
+    on this fixture's few reads."""
+    init = BatchAligner.__init__
+
+    def no_drain(self, *a, **k):
+        init(self, *a, **k)
+        if self.ext_mode == "waves":
+            self.drain_max, self.harvest_workers = 0, 0
+    monkeypatch.setattr(BatchAligner, "__init__", no_drain)
+
+
 def _body(path):
     return [l for l in Path(path).read_text().splitlines()
             if not l.startswith("@PG")]
@@ -121,17 +144,19 @@ def test_mem_sam_equals_jax_package(workdir, mode):
 
 
 PE_MODES = {"device_cpu": ["--device", "cpu"],
-            "device_cpu_int16": ["--device", "cpu"],
+            "device_cpu_int16": ["--device", "cpu", "--ext-mode", "waves"],
             "no_device": ["--no-device"],
             "insert_override": ["--device", "cpu", "-I", "300,30"]}
 
 
 @pytest.mark.parametrize("mode", sorted(PE_MODES))
 def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
-    """BWA_TPU_EXTEND16=1 runs the waves on the int16 plain version (the
-    int16 kernel's CPU path); the SAM does not change."""
+    """BWA_TPU_EXTEND16=1 runs the native route's device waves on the
+    int16 plain version (the int16 kernel's CPU path); the SAM does not
+    change. The other modes run the default --ext-mode host."""
     if mode == "device_cpu_int16":
         monkeypatch.setenv("BWA_TPU_EXTEND16", "1")
+        _waves_carry_every_task(monkeypatch)
     else:
         monkeypatch.delenv("BWA_TPU_EXTEND16", raising=False)
     calls = []
@@ -156,38 +181,49 @@ def test_pe_mem_sam_equals_jax_package(workdir, mode, monkeypatch):
 
 @pytest.mark.parametrize("extra", [["--device-timeout", "1"],
                                    ["--validate-every", "1"],
-                                   ["--ext-mode", "host"]])
+                                   ["--ext-mode", "waves"]])
 def test_later_slice_options_exit_nonzero(workdir, extra, monkeypatch,
                                           capsys):
-    """Each of the three options ends a run that cannot be right with a
-    non-zero exit, where the JAX package degrades to the host: a device
-    that never finishes (--device-timeout), a corrupted region
-    (--validate-every); --ext-mode host is refused, naming the native
-    _wave driver it would need."""
+    """Each option ends a run that cannot be right with a non-zero exit,
+    where the JAX package degrades to the host: a device that never
+    finishes (--device-timeout), a corrupted region (--validate-every),
+    a device wave row outside its task's range (--ext-mode waves: the
+    structural check of every wave row on the native route)."""
     monkeypatch.delenv("BWA_TPU_EXT", raising=False)
     if extra[0] == "--device-timeout":
         monkeypatch.setattr(BatchAligner, "_ready",
                             staticmethod(lambda device: lambda: False))
         want = TimeoutError
     elif extra[0] == "--validate-every":
-        real = BatchAligner.extend_waves
+        real = BatchAligner.extend_waves_packed
 
         def corrupted(self, *a, **k):
-            regs = real(self, *a, **k)
-            regs[0][0].score += 1
-            return regs
-        monkeypatch.setattr(BatchAligner, "extend_waves", corrupted)
+            rows, frac, off = real(self, *a, **k)
+            rows = rows.copy()
+            rows[0, 5] += 1   # the first region's score
+            return rows, frac, off
+        monkeypatch.setattr(BatchAligner, "extend_waves_packed", corrupted)
+        want = DeviceResultError
+    else:
+        _waves_carry_every_task(monkeypatch)
+        real_ext = batchmod.seed_extend_desc_batch
+
+        def bad_rows(*a, **k):
+            out = real_ext(*a, **k).clone()
+            out[1, 0] = -3   # lqle of the wave's first lane
+            return out
+        monkeypatch.setattr(batchmod, "seed_extend_desc_batch", bad_rows)
         want = DeviceResultError
     with pytest.raises(SystemExit) as e:
         cli.main(["mem", "--device", "cpu"] + extra
                  + ["-o", str(workdir / "later.sam"), str(workdir / "ref.fa"),
                     str(workdir / "se.fq")])
     assert e.value.code not in (0, None)
+    assert isinstance(e.value.__cause__, want)
+    err = capsys.readouterr().err
+    assert "[E::mem] " in err
     if extra[0] == "--ext-mode":
-        assert "native _wave driver" in str(e.value.code)
-    else:
-        assert isinstance(e.value.__cause__, want)
-        assert "[E::mem] " in capsys.readouterr().err
+        assert "wave lane" in err
 
 
 def test_validation_and_timeout_equal_jax_sam(workdir):
@@ -202,23 +238,78 @@ def test_validation_and_timeout_equal_jax_sam(workdir):
     assert cli.last_run_stats["validations"] == 3
 
 
-def test_ext_mode_waves_is_the_default_path(workdir, monkeypatch):
+def _mem_run(workdir, inputs, extra, name, capsys):
+    """Run `mem --device cpu` on se.fq or the pairs; returns (SAM body,
+    stderr)."""
+    fq = ["se.fq"] if inputs == "se" else ["r1.fq", "r2.fq"]
+    out = workdir / name
+    capsys.readouterr()
+    assert cli.main(["mem", "--device", "cpu"] + extra
+                    + ["-o", str(out), str(workdir / "ref.fa")]
+                    + [str(workdir / f) for f in fq]) == 0
+    return _body(out), capsys.readouterr().err
+
+
+def test_ext_mode_host_is_the_default_path(workdir, monkeypatch, capsys):
+    """With neither --ext-mode nor BWA_TPU_EXT, `mem` takes the native
+    route in host mode: every extension task on the harvesters, no
+    device wave, no ksw launch; the SAM is the JAX package's."""
     monkeypatch.delenv("BWA_TPU_EXT", raising=False)
-    out = workdir / "se_waves.sam"
-    assert cli.main(["mem", "--device", "cpu", "--ext-mode", "waves", "-o",
-                     str(out), str(workdir / "ref.fa"),
-                     str(workdir / "se.fq")]) == 0
-    assert _body(out) == _body(workdir / "jax" / "se.sam")
+    body, err = _mem_run(workdir, "se", [], "se_default.sam", capsys)
+    assert body == _body(workdir / "jax" / "se.sam")
+    st = cli.last_run_stats
+    assert st["waves"] == st["ext_tasks_device"] == 0
+    assert st["ext_tasks_host"] > 0
+    assert "native route, host mode" in err
+    assert "ksw_extend2 0, ksw_extend2_i16 0" in err
+
+
+def test_ext_mode_waves_runs_device_waves(workdir, monkeypatch, capsys):
+    """--ext-mode waves on the native route: device waves carry the
+    tasks; the SAM does not change."""
+    monkeypatch.delenv("BWA_TPU_EXT", raising=False)
+    _waves_carry_every_task(monkeypatch)
+    body, err = _mem_run(workdir, "se", ["--ext-mode", "waves"],
+                         "se_waves.sam", capsys)
+    assert body == _body(workdir / "jax" / "se.sam")
     assert cli.last_run_stats["ext_tasks_device"] > 0
+    assert "native route, waves mode" in err
 
 
-def test_ext_mode_host_from_the_environment_exits(workdir, monkeypatch):
+@pytest.mark.parametrize("inputs", ["se", "pe"])
+def test_ext_mode_host_runs(workdir, inputs, monkeypatch, capsys):
+    """--ext-mode host runs, single-end and paired-end, and gives the JAX
+    package's SAM."""
+    monkeypatch.setenv("BWA_TPU_EXT", "waves")   # the option wins
+    body, err = _mem_run(workdir, inputs, ["--ext-mode", "host"],
+                         f"{inputs}_host.sam", capsys)
+    assert body == _body(workdir / "jax" / f"{inputs}.sam")
+    assert cli.last_run_stats["ext_tasks_device"] == 0
+    assert "native route, host mode" in err
+
+
+@pytest.mark.parametrize("inputs", ["se", "pe"])
+def test_ext_mode_host_from_the_environment_runs(workdir, inputs,
+                                                 monkeypatch, capsys):
+    """BWA_TPU_EXT=host runs, single-end and paired-end, and gives the
+    JAX package's SAM."""
     monkeypatch.setenv("BWA_TPU_EXT", "host")
-    with pytest.raises(SystemExit) as e:
-        cli.main(["mem", "--device", "cpu", str(workdir / "ref.fa"),
-                  str(workdir / "se.fq")])
-    assert e.value.code not in (0, None)
-    assert "native _wave driver" in str(e.value.code)
+    body, err = _mem_run(workdir, inputs, [], f"{inputs}_env_host.sam",
+                         capsys)
+    assert body == _body(workdir / "jax" / f"{inputs}.sam")
+    assert cli.last_run_stats["ext_tasks_device"] == 0
+    assert "native route, host mode" in err
+
+
+def test_python_route_from_mem_in_process(workdir, monkeypatch, capsys):
+    """cli._mem(..., native=False): the pure-Python route, whose waves run
+    whatever the extension mode; the same SAM."""
+    monkeypatch.setenv("BWA_TPU_EXT", "host")
+    _python_route(monkeypatch)
+    body, err = _mem_run(workdir, "se", [], "se_python.sam", capsys)
+    assert body == _body(workdir / "jax" / "se.sam")
+    assert cli.last_run_stats["ext_tasks_device"] > 0
+    assert "python route" in err
 
 
 def test_help_lists_the_options(capsys):
@@ -231,12 +322,14 @@ def test_help_lists_the_options(capsys):
     assert "{host,waves}" in text and "native _wave driver" in text
 
 
-# a `mem` run whose device stops finishing from its second batch's waves
-# on; it records its pool's worker pids in argv[1]
+# a `mem` run on the pure-Python route whose device stops finishing from
+# its second batch's waves on; it records its pool's worker pids in
+# argv[1]
 _STALL_SCRIPT = """\
-import json, sys
+import functools, json, sys
 from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.pipeline import batch, dataflow
+cli._mem = functools.partial(cli._mem, native=False)
 init, ext = dataflow.AlignPipeline.__init__, batch.BatchAligner.extend_waves
 def pool_pids(self, *a, **k):
     init(self, *a, **k)
@@ -280,6 +373,64 @@ def test_stalled_run_exits_nonzero_and_leaves_no_pool_child(workdir):
     assert not alive
 
 
+# a `mem` run on the native route in --ext-mode waves (no host drain, no
+# harvesters) whose device stops finishing as its second batch's
+# extension starts; that extension's worker reaches its first device wait
+# argv[1] s late. Prints when the stall began.
+_NATIVE_STALL_SCRIPT = """\
+import sys, time
+from bwa_flow_tpu_torch import cli
+from bwa_flow_tpu_torch.pipeline import batch
+B = batch.BatchAligner
+init, start, ext = B.__init__, B.extend_async, B.extend_waves_packed
+def waves_only(self, *a, **k):
+    init(self, *a, **k)
+    self.drain_max, self.harvest_workers = 0, 0
+calls = []
+def stall(self, *a, **k):
+    calls.append(1)
+    if len(calls) == 2:
+        self._ready = lambda device: (lambda: False)
+        print(f"[stall] at {time.time():.3f}", file=sys.stderr, flush=True)
+    return start(self, *a, **k)
+def late(self, *a, **k):
+    if len(calls) == 2:
+        time.sleep(float(sys.argv[1]))
+    return ext(self, *a, **k)
+B.__init__, B.extend_async, B.extend_waves_packed = waves_only, stall, late
+cli.entry_main(sys.argv[2:])
+"""
+
+
+def test_stalled_native_run_exits_within_one_timeout(workdir):
+    """The CLI's own route (native, --ext-mode waves) on a device that
+    hangs in its second batch: the main thread's wait for the third
+    batch's seeding times out, and the process exits non-zero with
+    [E::mem] about one --device-timeout after the stall, although the
+    extension worker's wait began later (it is abandoned, not waited
+    out)."""
+    timeout, late_s = 2.0, 1.6
+    script = workdir / "native_stall_run.py"
+    script.write_text(_NATIVE_STALL_SCRIPT)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    env.pop("BWA_TPU_EXT", None)
+    r = subprocess.run(
+        [sys.executable, str(script), str(late_s), "mem", "--device",
+         "cpu", "--ext-mode", "waves", "--batch-reads", "4",
+         "--device-timeout", str(timeout), "-o",
+         str(workdir / "native_stall.sam"), str(workdir / "ref.fa"),
+         str(workdir / "se.fq")], capture_output=True, text=True,
+        env=env, timeout=300)
+    t_end = time.time()
+    assert r.returncode not in (0, None), r.stderr[-2000:]
+    assert "[E::mem] device work did not finish" in r.stderr
+    t_stall = [float(l.split()[-1]) for l in r.stderr.splitlines()
+               if l.startswith("[stall] at ")]
+    assert len(t_stall) == 1, r.stderr[-2000:]
+    assert timeout <= t_end - t_stall[0] < timeout + late_s / 2 + 0.5, \
+        t_end - t_stall[0]
+
+
 def _alive(pid: int) -> bool:
     try:
         os.kill(pid, 0)
@@ -289,10 +440,14 @@ def _alive(pid: int) -> bool:
 
 
 @pytest.mark.parametrize("n", [0, 1, 2])
-def test_local_devices_se_equals_one_device_and_jax(workdir, n):
+def test_local_devices_se_equals_one_device_and_jax(workdir, n,
+                                                    monkeypatch):
     """--local-devices 2 shards every batch over two CPU shards; 0 and 1
     are the one-device path. The SAM equals the one-device --device cpu
-    run's and the JAX package's."""
+    run's and the JAX package's. On the pure-Python route, whose waves
+    run on every shard at this size (test_local_devices_pe_equals_jax
+    runs the native route)."""
+    _python_route(monkeypatch)
     out = workdir / f"se_ld{n}.sam"
     assert cli.main(["mem", "--device", "cpu", "--local-devices", str(n),
                      "-o", str(out), str(workdir / "ref.fa"),

@@ -5,7 +5,9 @@ AlignPipeline(aligner_kw=dict(n_local_devices=2)) SAM, on the fixture of
 tests/test_multidevice.py (a numpy-made 30 kbp genome with 15% repeats,
 96 x 101 bp reads, batches of 48). Also: uneven and tiny shards, a
 worker pool, the sharded seeds and SA values, per-shard counters, the
-span accounting, and a shard failure failing the run."""
+span accounting, and a shard failure failing the run. The pipelines here
+take the pure-Python route, whose waves run on every shard at this size
+(tests/test_torch_native.py holds the native route's shards)."""
 
 import time
 
@@ -61,12 +63,13 @@ def fx():
 
 
 def _port(fx, recs, devices, paired=False, n_workers=0, size=48):
-    """(SAM records, stats) of the port's AlignPipeline on `devices`."""
+    """(SAM records, stats) of the port's AlignPipeline on `devices`, on
+    the pure-Python route."""
     opt = MemOpt()
     if paired:
         opt.flag |= MEM_F_PE
     pipe = AlignPipeline(opt, fx["fm"], paired=paired, n_workers=n_workers,
-                         devices=devices, aligner_kw=KW)
+                         devices=devices, aligner_kw=KW, native=False)
     done = []
     try:
         pipe.run(_batches(_reads(recs, Read), size), done.extend)

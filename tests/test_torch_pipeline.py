@@ -2,7 +2,8 @@
 BatchAligner and the golden straight-line aligner: SAM-for-SAM equality
 (the SE tests of tests/test_pipeline_batch.py), and the dataflow
 AlignPipeline, single-end and paired-end, inline and with a worker
-pool."""
+pool. The tests that count device waves take the pure-Python route
+(native=False); tests/test_torch_native.py holds the native route."""
 
 import numpy as np
 import pytest
@@ -94,7 +95,7 @@ def test_batch_se_matches_jax_and_golden(idx, case):
     seqs = _seqs(np.random.default_rng(61 + len(case)), contigs, n)
     gold, jax_sam = _jax_sams(fm, seqs, drain_max=0, **kw)
     reads = _reads(seqs, Read)
-    ba = BatchAligner(MemOpt(), fm, device="cpu", **kw)
+    ba = BatchAligner(MemOpt(), fm, device="cpu", native=False, **kw)
     ba.align_se(reads, n_processed=0)
     for got, want_g, want_j in zip(reads, gold, jax_sam):
         assert got.sam == want_j, f"{got.name}:\n{got.sam!r}\n{want_j!r}"
@@ -169,7 +170,7 @@ def test_batch_pe_matches_golden(idx):
     want = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
     golden.align_pe(opt, fm, want, 0)
     reads = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
-    ba = BatchAligner(opt, fm, wave_cap=32, device="cpu")
+    ba = BatchAligner(opt, fm, wave_cap=32, device="cpu", native=False)
     ba.align_pe(reads, n_processed=0)
     assert [r.sam for r in reads] == [r.sam for r in want]
     assert ba.stats["ext_tasks_device"] > 0
@@ -192,7 +193,8 @@ def test_align_pipeline_refuses_paired(idx):
              for i, s in enumerate(seqs)]
     out = []
     pipe = AlignPipeline(opt, fm, paired=True, n_workers=2,
-                         device="cpu", aligner_kw=dict(wave_cap=32))
+                         device="cpu", native=False,
+                         aligner_kw=dict(wave_cap=32))
     try:
         n = pipe.run([reads[:24], reads[24:]], out.extend)
     finally:

@@ -4,7 +4,8 @@ injections on inputs made by numpy from a seed and given to both
 packages. Where the JAX package degrades to the host (device_ok =
 False, bit-identical SAM), the port raises (DeviceResultError,
 TimeoutError, the dispatch's own error); clean runs equal the JAX
-package's SAM exactly."""
+package's SAM exactly. These tests hold the pure-Python route
+(native=False); tests/test_torch_native.py holds the native route's."""
 
 import time
 
@@ -90,7 +91,7 @@ def _corrupt_scores(real, delta):
 
 
 def _run_pipe(fm, reads, batches, **kw):
-    pipe = AlignPipeline(MemOpt(), fm, device="cpu",
+    pipe = AlignPipeline(MemOpt(), fm, device="cpu", native=False,
                          aligner_kw=dict(wave_cap=32), **kw)
     done = []
     try:
@@ -113,7 +114,7 @@ def test_clean_validation_equals_jax_sam(fx):
     assert jba.device_ok and jba.stats["validations"] == 1
     reads = _reads(fx["se"], Read)
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, validate_every=1,
-                      device="cpu")
+                      device="cpu", native=False)
     ba.align_se(reads)
     assert [r.sam for r in reads] == [r.sam for r in ja] == fx["want"]
     assert ba.stats["validations"] == 1
@@ -145,8 +146,8 @@ def test_raising_dispatch_propagates(fx, monkeypatch, where):
         if where == "pipeline":
             _run_pipe(fx["fm"], _reads(fx["se"], Read), 6)
         else:
-            BatchAligner(MemOpt(), fx["fm"], wave_cap=32,
-                         device="cpu").align_se(_reads(fx["se"], Read))
+            BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
+                         native=False).align_se(_reads(fx["se"], Read))
 
 
 def test_corrupted_regions_raise_naming_read_and_fields(fx, monkeypatch):
@@ -163,7 +164,7 @@ def test_corrupted_regions_raise_naming_read_and_fields(fx, monkeypatch):
     jba.align_se(ja)
     assert not jba.device_ok and [r.sam for r in ja] == fx["want"]
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, validate_every=1,
-                      validate_sample=6, device="cpu")
+                      validate_sample=6, device="cpu", native=False)
     monkeypatch.setattr(ba, "extend_waves",
                         _corrupt_scores(ba.extend_waves, 7))
     with pytest.raises(DeviceResultError) as e:
@@ -182,7 +183,8 @@ def test_pipeline_corrupted_regions_raise(fx, monkeypatch):
     monkeypatch.setattr(BatchAligner, "extend_waves", _corrupt_scores(
         BatchAligner.extend_waves, 3))
     emitted = []
-    pipe = AlignPipeline(MemOpt(), fx["fm"], device="cpu", validate_every=1,
+    pipe = AlignPipeline(MemOpt(), fx["fm"], device="cpu",
+                         native=False, validate_every=1,
                          validate_sample=12, aligner_kw=dict(wave_cap=32))
     try:
         with pytest.raises(DeviceResultError, match=r"read 0 \(r0\) of "
@@ -197,7 +199,8 @@ def test_corrupt_wave_row_raises_without_validation(fx, monkeypatch):
     """qle = -3 in every lane of a wave (no kernel can emit it) with the
     default validate_every=0: the structural check raises naming the
     read and the field (tests/test_validation.py:178)."""
-    ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu")
+    ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
+                      native=False)
     real = ba.fetch
 
     def corrupt(t):
@@ -265,7 +268,7 @@ def test_clean_waves_pass_structural_check(fx, monkeypatch, paired):
     if paired:
         opt.flag |= MEM_F_PE
     seqs = fx["pe"] if paired else fx["se"]
-    ba = BatchAligner(opt, fx["fm"], wave_cap=8, device="cpu")
+    ba = BatchAligner(opt, fx["fm"], wave_cap=8, device="cpu", native=False)
     reads = _reads(seqs, Read)
     if paired:
         for r in reads:
@@ -295,6 +298,7 @@ def test_stalled_wait_times_out(fx, monkeypatch):
     """A device that never finishes (the ready-check replaced) raises
     TimeoutError within device_timeout + 2 s."""
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
+                      native=False,
                       device_timeout=0.5)
     monkeypatch.setattr(ba, "_ready", lambda device: (lambda: False))
     t0 = time.monotonic()
@@ -316,6 +320,7 @@ def test_zero_timeout_never_polls(fx, monkeypatch):
         polls.clear()
         reads = _reads(fx["se"], Read)
         ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
+                          native=False,
                           device_timeout=timeout)
         monkeypatch.setattr(ba, "_ready", ready)
         ba.align_se(reads)
