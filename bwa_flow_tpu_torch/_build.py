@@ -10,15 +10,17 @@ loads from the previous build. nvcc's output (with ``-Xptxas -v``: each
 kernel's registers, shared memory and spills) is kept beside the library
 and returned by ``build_log``.
 
-Each ``csrc/host/<name>.cpp`` (``_chain``, ``_region``, ``_wave``) is a
-CPython extension. At first use it is compiled with the system ``c++``
-into ``build/host/``, named by a hash of the source, the headers
-``csrc/host/*.h``, the flags and the interpreter's include directory,
-under a file lock (one build for every process of the checkout), and
-loaded as ``bwa_flow_tpu_torch.<name>``.
+Each ``csrc/host/<name>.cpp`` (``_chain``, ``_region``, ``_wave``,
+``_native``, ``_markdup``, ``_bam``) is a CPython extension. At first
+use it is compiled with the system ``c++`` into ``build/host/``, named
+by a hash of the source, the ``csrc/host/*.h`` headers it includes, its
+flags (``_native`` and ``_bam`` take ``-pthread``; ``_bam`` links zlib)
+and the interpreter's include directory, under a file lock (one build
+for every process of the checkout), and loaded as
+``bwa_flow_tpu_torch.<name>``.
 
-There is no fallback: a missing ``nvcc``, ``c++`` or ``Python.h``, or a
-failed build, raises with the compiler's output.
+There is no fallback: a missing ``nvcc``, ``c++``, ``Python.h`` or
+``zlib.h``, or a failed build, raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import hashlib
 import importlib.machinery
 import importlib.util
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -45,7 +48,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # setup.py's flags for the JAX package's copies of these extensions, plus
 # what a shared CPython extension needs
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-HOST_LIBS = ("_chain", "_region", "_wave")
+HOST_LIBS = ("_chain", "_region", "_wave", "_native", "_markdup", "_bam")
+# setup.py's per-extension flags, after the source (libraries link there)
+HOST_LIB_FLAGS = {"_native": ("-pthread",), "_bam": ("-pthread", "-lz")}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -152,10 +158,25 @@ def python_include() -> str:
     return inc
 
 
+def host_headers(name: str) -> list[Path]:
+    """The csrc/host headers csrc/host/<name>.cpp includes, directly or
+    through another header, in the order first seen."""
+    seen: list[Path] = []
+    todo = [HOST_SRC / f"{name}.cpp"]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop(0).read_bytes()):
+            p = HOST_SRC / inc.decode()
+            if p.is_file() and p not in seen:
+                seen.append(p)
+                todo.append(p)
+    return seen
+
+
 def host_lib_path(name: str) -> Path:
     src = (HOST_SRC / f"{name}.cpp").read_bytes()
-    src += b"".join(p.read_bytes() for p in sorted(HOST_SRC.glob("*.h")))
-    key = src + " ".join(HOST_FLAGS).encode() + python_include().encode()
+    src += b"".join(p.read_bytes() for p in host_headers(name))
+    flags = HOST_FLAGS + HOST_LIB_FLAGS.get(name, ())
+    key = src + " ".join(flags).encode() + python_include().encode()
     h = hashlib.sha256(key).hexdigest()
     suffix = sysconfig.get_config_var("EXT_SUFFIX") or ".so"
     return HOST_BUILD_DIR / f"{name}-{h[:16]}{suffix}"
@@ -178,7 +199,7 @@ def _host_start(name: str):
             return None
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [cxx(), *HOST_FLAGS, f"-I{python_include()}", "-o", str(tmp),
-               str(HOST_SRC / f"{name}.cpp")]
+               str(HOST_SRC / f"{name}.cpp"), *HOST_LIB_FLAGS.get(name, ())]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
     except BaseException:
@@ -202,12 +223,12 @@ def _host_finish(name: str, job) -> None:
         lock.close()           # releases the build lock
 
 
-def build_host(names=HOST_LIBS) -> None:
+def _build_host(names) -> dict:
     """Compile every named host library not built yet, one c++ each, all
-    started together (locks taken in name order); waits for every one,
-    then raises the first failure, so no compiler is left running and no
-    lock held."""
-    jobs, errs = [], []
+    started together (locks taken in name order), and wait for every one,
+    so no compiler is left running and no lock held. Returns each failed
+    build's error by name."""
+    jobs, errs = [], {}
     try:
         for n in sorted(names):
             jobs.append((n, _host_start(n)))
@@ -215,23 +236,33 @@ def build_host(names=HOST_LIBS) -> None:
         for n, job in jobs:
             try:
                 _host_finish(n, job)
-            except Exception as e:  # noqa: BLE001 - the first is raised
-                errs.append(e)
+            except Exception as e:  # noqa: BLE001 - returned to raise
+                errs[n] = e
+    return errs
+
+
+def build_host(names=HOST_LIBS) -> None:
+    """Build every named host library not built yet, all at once; raises
+    the first failure."""
+    errs = _build_host(names)
     if errs:
-        raise errs[0]
+        raise next(iter(errs.values()))
 
 
 def host_module(name: str):
     """The host library csrc/host/<name>.cpp as the extension module
     bwa_flow_tpu_torch.<name>; the first call builds every host library
-    not built yet, all at once."""
+    not built yet, all at once, and raises if this one's build failed
+    (another's failure raises when that one is asked for)."""
     mod = _HOST_MODS.get(name)
     if mod is not None:
         return mod
     with _LOCK:
         mod = _HOST_MODS.get(name)
         if mod is None:
-            build_host()
+            err = _build_host(HOST_LIBS).get(name)
+            if err is not None:
+                raise err
             full = f"{__package__}.{name}"
             path = str(host_lib_path(name))
             loader = importlib.machinery.ExtensionFileLoader(full, path)

@@ -7,9 +7,12 @@ coordinate-sorted BAM (--sort) as output, in one process or in several
 on several from one process (--local-devices N).
 
 `mem` takes the native route (pipeline/batch.py: the port's host
-libraries csrc/host, built with c++ at first use), as a built JAX
+libraries csrc/host, built with c++ at first use, for chaining,
+extension, the tails, markdup and the BAM encoder), as a built JAX
 install does; in-process callers reach the pure-Python route with
-_mem(..., native=False). --ext-mode host (the default, also from
+_mem(..., native=False), which also takes the regex markdup stage and
+the Python BAM encoder, as a JAX install without its extensions does.
+`index` builds the suffix array with the native SA-IS. --ext-mode host (the default, also from
 BWA_TPU_EXT) runs every extension task on harvester threads (the native
 _wave driver's exact scalar kernel) and launches no ksw kernel;
 --ext-mode waves runs device extension waves beside them.
@@ -335,7 +338,8 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
     formed and destroyed by the caller). `devices`, a list of torch
     devices (it may repeat one), shards the device path over them in
     place of --device/--local-devices. native=False takes the
-    pure-Python route (AlignPipeline)."""
+    pure-Python route (AlignPipeline), the regex markdup stage and the
+    Python BAM encoder."""
     device = args.device
     if nprocs > 1:
         # per-rank output (the reference's <host>-<pid> dirs,
@@ -376,7 +380,8 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
     markdup = None
     if not args.disable_markdup:
         from .dedup.markdup import make_markdup_stage
-        markdup = make_markdup_stage(fm, ignore_unmated=True)
+        markdup = make_markdup_stage(fm, ignore_unmated=True,
+                                     native=native)
 
     bucket = None
     out = None
@@ -388,7 +393,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
             # <host>-<pid> output dirs, mpi_main.cpp:294-318)
             temp_dir = os.path.join(temp_dir, f"rank{pid:03d}")
         bucket = BucketSort(fm.bns.anns, temp_dir, args.num_buckets,
-                            drop_dups=args.remove_dups)
+                            drop_dups=args.remove_dups, native=native)
     else:
         out = sys.stdout if args.output == "-" else open(args.output, "w")
         out.write(header)
@@ -508,7 +513,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
         if bucket is not None:
             from .pipeline import sort
             sort.merge_sorted_bam(bucket.close(), args.output,
-                                  fm.bns.anns, header)
+                                  fm.bns.anns, header, native=native)
             print(f"[M::mem] sorted BAM written to {args.output}",
                   file=sys.stderr)
         elif out is not sys.stdout:

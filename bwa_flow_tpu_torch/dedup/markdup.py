@@ -11,7 +11,12 @@ duplicate block.
 Where the reference guards one global hash table with a mutex
 (MarkDupStage.cpp:132-134), this keeps a per-instance signature set that
 batches can update NumPy-vectorized; multi-host operation merges signature
-sets via allgather (parallel/mesh.py) instead of sharing memory.
+sets via allgather (parallel/distributed.py) instead of sharing memory.
+
+Two stages compute the same marks: NativeMarkDupStage (the _markdup host
+library, csrc/host/_markdup.cpp), which make_markdup_stage returns, and
+the regex MarkDupStage here, its golden specification, taken with
+native=False.
 """
 
 from __future__ import annotations
@@ -19,6 +24,9 @@ from __future__ import annotations
 import dataclasses
 import re
 
+import numpy as np
+
+from .. import _build
 from ..io.sam import Read
 
 BIN_SHIFT = 27
@@ -237,6 +245,87 @@ class MarkDupStage:
             i = j
 
 
-def make_markdup_stage(fm, ignore_unmated: bool = False):
-    """The streaming duplicate-marking stage."""
+# ----------------------------------------------------------------- native
+
+class NativeMarkDupState:
+    """MarkDupState-compatible facade over the _markdup host library:
+    per-bin open-addressing uint64 sets (~11 B/signature against ~200 B
+    for a Python tuple set). Its signature items are (s1, s2, sig)
+    triples of uint64 (csrc/host/_markdup.cpp items), each below 2^63:
+    s1 and s2 keep 32 bits, and sig packs two 27-bit bin positions, the
+    first in its top 32 bits."""
+
+    def __init__(self, anns, ignore_unmated: bool = False):
+        self._lib = _build.host_module("_markdup")
+        names = [a.name.encode() for a in anns]
+        name_off = np.zeros(len(names) + 1, np.int64)
+        for i, nm in enumerate(names):
+            name_off[i + 1] = name_off[i] + len(nm)
+        lens = np.array([a.len for a in anns], np.int64)
+        self._st = self._lib.create(b"".join(names), name_off, lens,
+                                    bool(ignore_unmated))
+        self.ignore_unmated = ignore_unmated
+
+    @property
+    def dup_count(self) -> int:
+        return self._lib.counts(self._st)[0]
+
+    @property
+    def unmated_count(self) -> int:
+        return self._lib.counts(self._st)[1]
+
+    def signature_items(self):
+        raw = np.frombuffer(self._lib.items(self._st), np.uint64)
+        return [tuple(int(x) for x in raw[i:i + 3])
+                for i in range(0, len(raw), 3)]
+
+    def merge(self, items) -> None:
+        flat = np.asarray([x for t in items for x in t], np.uint64)
+        self._lib.merge(self._st, flat.tobytes())
+
+
+class NativeMarkDupStage:
+    """MarkDupStage on the native engine: one C++ pass parses primary
+    lines, probes/updates the signature store, and rewrites FLAG 1024 —
+    no regex, no Python per line."""
+
+    def __init__(self, fm, ignore_unmated: bool = False):
+        self.state = NativeMarkDupState(fm.bns.anns, ignore_unmated)
+
+    def process(self, reads: list[Read]) -> None:
+        n = len(reads)
+        if not n:
+            return
+        # the library works on bytes: offsets count UTF-8 bytes, also
+        # where a read's SAM is not ASCII
+        sams = [r.sam.encode() for r in reads]
+        sam_off = np.zeros(n + 1, np.int64)
+        np.cumsum([len(s) for s in sams], out=sam_off[1:])
+        blocks = [0]
+        i = 0
+        while i < n:
+            j = i + 1
+            while j < n and reads[j].name == reads[i].name:
+                j += 1
+            blocks.append(j)
+            i = j
+        block_off = np.asarray(blocks, np.int64)
+        lib = self.state._lib
+        new_cat, new_off_b = lib.process(self.state._st, b"".join(sams),
+                                         sam_off, block_off)
+        if lib.counts(self.state._st)[2]:
+            raise ValueError(
+                "markdup: ungrouped input (block without first/second "
+                "of pair)")
+        new_off = np.frombuffer(new_off_b, np.int64)
+        for i, r in enumerate(reads):
+            r.sam = new_cat[new_off[i]:new_off[i + 1]].decode()
+
+
+def make_markdup_stage(fm, ignore_unmated: bool = False,
+                       native: bool = True):
+    """The streaming duplicate-marking stage: the native one, or with
+    native=False the regex MarkDupStage."""
+    if native:
+        return NativeMarkDupStage(fm, ignore_unmated)
     return MarkDupStage(fm, ignore_unmated)

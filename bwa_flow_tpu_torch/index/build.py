@@ -13,9 +13,10 @@ import io as _io
 
 import numpy as np
 
+from .. import _build
 from .fmindex import Amb, Annotation, FMIndex, ReferenceMeta, pack_pac, unpack_pac
 from .rand48 import Rand48
-from .suffix import bwt_from_sa, suffix_array
+from .suffix import bwt_from_sa
 
 _NT4 = np.full(256, 4, dtype=np.uint8)
 for i, ch in enumerate("ACGT"):
@@ -97,11 +98,22 @@ def encode_reference(contigs: list[tuple[str, str, bytes]]) -> tuple[ReferenceMe
     return bns, fwd
 
 
+def suffix_array_sais(both: np.ndarray) -> np.ndarray:
+    """Suffix array of `both` + sentinel (int64[n+1], out[0] == n) by
+    the native SA-IS (csrc/host/sais_impl.h), at any scale: the
+    reference needs two programs, is.c for short references and the
+    blockwise bwt_gen.c for Gbp (bwa/bwtindex.c:210-324).
+    suffix.suffix_array (NumPy prefix doubling) is its oracle."""
+    nat = _build.host_module("_native")
+    return np.frombuffer(
+        nat.sais(np.ascontiguousarray(both, np.uint8), 4), np.int64)
+
+
 def build_index(contigs: list[tuple[str, str, bytes]], sa_intv: int = SA_INTV) -> FMIndex:
     bns, fwd = encode_reference(contigs)
     both = np.concatenate([fwd, (3 - fwd)[::-1]])  # forward + reverse complement
     del fwd
-    sa_full = suffix_array(both)
+    sa_full = suffix_array_sais(both)
     samples = sa_full[::sa_intv].astype(np.int64).copy()
     samples[0] = -1  # bwa sentinel (bwa/bwt.c:83)
     bwt, primary = bwt_from_sa(both, sa_full)

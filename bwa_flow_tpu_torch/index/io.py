@@ -9,12 +9,19 @@ the reference binaries.
 from __future__ import annotations
 
 import os
+import sys
+import time
 
 import numpy as np
 
+from .. import _build
 from .fmindex import Amb, Annotation, FMIndex, ReferenceMeta
 
 OCC_INTERVAL = 128  # bwa/bwt.h:36
+
+# genomes at or below this seq_len get a fully dense device SA instead
+# (ops/fm_torch._densify_sa); only larger ones re-sample (tests lower it)
+RESAMPLE_MIN = 1 << 28
 
 _BYTE_LUT = np.empty((256, 4), dtype=np.uint8)
 for _b in range(256):
@@ -53,15 +60,16 @@ def write_bwt(path: str, fm_bwt_u8: np.ndarray, primary: int, L2: np.ndarray) ->
     words_all = (per_blk.reshape(-1, 16).astype(np.uint32) << shifts[None, :]) \
         .sum(axis=1, dtype=np.uint32)
     n_words = (seq_len + 15) // 16
+    # one row a block: its 4 uint64 counts, then its 8 words; the last
+    # block keeps only the words that hold symbols. One write: a write a
+    # block (~145k for 4.6 Mbp) costs seconds on a slow filesystem.
+    rows = np.empty((n_blocks, 16), dtype=np.uint32)
+    rows[:, :8] = cum[:n_blocks].view(np.uint32)
+    rows[:, 8:] = words_all.reshape(n_blocks, 8)
     with open(path, "wb") as f:
         np.uint64(primary).tofile(f)
         L2[1:5].astype(np.uint64).tofile(f)
-        w = 0
-        for b in range(n_blocks):
-            cum[b].tofile(f)
-            take = min(8, n_words - w)
-            words_all[w:w + take].tofile(f)
-            w += take
+        rows.reshape(-1)[:n_blocks * 16 - (n_blocks * 8 - n_words)].tofile(f)
         cum[n_blocks].tofile(f)
 
 
@@ -219,6 +227,7 @@ def load_index(prefix: str, ignore_alt: bool = False) -> FMIndex:
                      sa=np.load(sa_f, mmap_mode="r"), bns=bns)
         fm.cache_prefix = prefix
         _apply_alt(prefix, bns, ignore_alt)
+        _resample_sa(fm, prefix, use_cache)
         return fm
     if use_cache and _fresh(cache):
         d = np.load(cache)
@@ -229,6 +238,7 @@ def load_index(prefix: str, ignore_alt: bool = False) -> FMIndex:
         _write_v2(fm)   # migrate to the mmap layout for the next load
         fm.cache_prefix = prefix
         _apply_alt(prefix, bns, ignore_alt)
+        _resample_sa(fm, prefix, use_cache)
         return fm
     bwt_u8, primary, L2 = read_bwt(prefix + ".bwt")
     seq_len = int(L2[4])
@@ -240,7 +250,63 @@ def load_index(prefix: str, ignore_alt: bool = False) -> FMIndex:
     assert fm.seq_len == seq_len and (fm.L2 == L2).all()
     if use_cache:
         _write_v2(fm)
+    _resample_sa(fm, prefix, use_cache)
     return fm
+
+
+def _resample_sa(fm: FMIndex, prefix: str | None, use_cache: bool) -> None:
+    """Densify the sampled SA of a large genome in place (native
+    LF-orbit enumeration, csrc/host/_native.cpp sa_resample).
+
+    bwa ships sa_intv=32, so every SA lookup walks ~16 LF steps; at Gbp
+    scale those walks dominate device seeding (each step is one row
+    gather). Genomes up to RESAMPLE_MIN already get a fully dense device
+    SA (ops/fm_torch._densify_sa); here the target interval is the
+    smallest of 4/8/16 whose table fits BWA_TPU_SA_BYTES (default ~3.5
+    GB: 1 Gbp lands on intv 4 as int32, human scale on intv 16 as
+    int64). Set BWA_TPU_SA_BYTES=0 to disable. The result is cached
+    beside the artifacts as <prefix>.tpu.sa<N>.npy (int32 below 2^31
+    rows) and loaded memmapped while newer than the .bwt. The denser
+    table serves both the device walk and the host's bwt_sa; stock-format
+    .sa round-trips are unaffected (save_index writes whatever interval
+    fm carries, and the format admits any power of 2)."""
+    budget = int(os.environ.get("BWA_TPU_SA_BYTES", 7 << 29))
+    if budget <= 0 or fm.seq_len <= RESAMPLE_MIN:
+        return
+    itemsize = 4 if fm.seq_len < 2**31 else 8
+    for intv in (4, 8, 16):
+        if intv >= fm.sa_intv:
+            return
+        if (fm.seq_len // intv + 1) * itemsize <= budget:
+            break
+    else:
+        return
+    cachef = f"{prefix}.tpu.sa{intv}.npy" if prefix else None
+    if (cachef and use_cache and os.path.exists(cachef)
+            and os.path.getmtime(cachef) >= os.path.getmtime(
+                prefix + ".bwt")):
+        # mmap: int64 tables stay memmapped end-to-end; int32 tables
+        # widen at DeviceFM construction
+        fm.sa = np.load(cachef, mmap_mode="r")
+        fm.sa_intv = intv
+        return
+    t0 = time.time()
+    raw = _build.host_module("_native").sa_resample(
+        np.ascontiguousarray(fm.fm_blocks, np.int32),
+        np.ascontiguousarray(fm.L2, np.int64), int(fm.primary),
+        int(fm.seq_len), np.ascontiguousarray(fm.sa, np.int64),
+        int(fm.sa_intv), intv, os.cpu_count() or 4)
+    sa_new = np.frombuffer(raw, np.int64)
+    print(f"[M::index] resampled SA {fm.sa_intv} -> {intv} "
+          f"({time.time()-t0:.1f}s)", file=sys.stderr)
+    if cachef and use_cache:
+        try:
+            np.save(cachef, sa_new.astype(np.int32) if itemsize == 4
+                    else sa_new)
+        except OSError:
+            pass  # read-only index dir: skip the cache
+    fm.sa = sa_new
+    fm.sa_intv = intv
 
 
 def _apply_alt(prefix: str, bns: ReferenceMeta, ignore_alt: bool) -> None:

@@ -13,6 +13,13 @@ Integer-exact reimplementations of:
 
 Rows are NumPy-vectorized; the F dependency is a decayed prefix max (F
 derives from M only, not H, per bwa's recurrence) so no lazy-F is needed.
+
+ksw_extend2 and ksw_global2 run the native host kernels
+(csrc/host/_native.cpp, ksw_impl.h: the same semantics, built at first
+use), as the JAX package's do when its extensions are built;
+ksw_extend2_py and ksw_global2_py are the NumPy versions, run only when
+called by name. ksw_align2 (mate rescue) stays NumPy, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from .. import _build
 
 KSW_XBYTE = 0x10000
 KSW_XSTOP = 0x20000
@@ -52,9 +61,14 @@ def ksw_extend2(qlen: int, query: np.ndarray, tlen: int, target: np.ndarray,
                 mat: np.ndarray, o_del: int, e_del: int, o_ins: int,
                 e_ins: int, w: int, end_bonus: int, zdrop: int, h0: int
                 ) -> tuple[int, int, int, int, int, int]:
-    """Returns (score, qle, tle, gtle, gscore, max_off)."""
-    return ksw_extend2_py(qlen, query, tlen, target, mat, o_del, e_del,
-                          o_ins, e_ins, w, end_bonus, zdrop, h0)
+    """Returns (score, qle, tle, gtle, gscore, max_off), from the native
+    kernel."""
+    assert h0 > 0
+    return _build.host_module("_native").ksw_extend2(
+        int(qlen), np.ascontiguousarray(query[:qlen], dtype=np.uint8),
+        int(tlen), np.ascontiguousarray(target[:tlen], dtype=np.uint8),
+        np.ascontiguousarray(mat, dtype=np.int8), mat.shape[0], o_del,
+        e_del, o_ins, e_ins, w, end_bonus, zdrop, h0)
 
 
 def ksw_extend2_py(qlen: int, query: np.ndarray, tlen: int,
@@ -167,9 +181,12 @@ def ksw_global2(qlen: int, query: np.ndarray, tlen: int, target: np.ndarray,
                 e_ins: int, w: int, want_cigar: bool = True
                 ) -> tuple[int, list[tuple[int, int]]]:
     """Banded global alignment. Returns (score, cigar) with cigar as
-    [(op, len)] (op: 0=M 1=I 2=D)."""
-    return ksw_global2_py(qlen, query, tlen, target, mat, o_del, e_del,
-                          o_ins, e_ins, w, want_cigar)
+    [(op, len)] (op: 0=M 1=I 2=D), from the native kernel."""
+    return _build.host_module("_native").ksw_global2(
+        int(qlen), np.ascontiguousarray(query[:qlen], dtype=np.uint8),
+        int(tlen), np.ascontiguousarray(target[:tlen], dtype=np.uint8),
+        np.ascontiguousarray(mat, dtype=np.int8), mat.shape[0], o_del,
+        e_del, o_ins, e_ins, w, bool(want_cigar))
 
 
 def ksw_global2_py(qlen: int, query: np.ndarray, tlen: int,

@@ -48,6 +48,7 @@ import multiprocessing as mp
 import threading
 from typing import Callable, Iterable
 
+from .. import _build
 from ..io.sam import Read
 from ..ops import pe as peops
 from ..ops import region_native
@@ -141,7 +142,10 @@ class AlignPipeline:
         if n_workers > 0:
             # before the device upload below: the workers fork from a
             # process that holds no index tensors of its own making, and
-            # before any harvester, extension or tail thread exists
+            # before any harvester, extension or tail thread exists. The
+            # workers' ksw_extend2/ksw_global2 run the _native host
+            # library: loaded here, no worker builds it or waits for it.
+            _build.host_module("_native")
             ctx = mp.get_context(mp_context)
             self.pool = ctx.Pool(n_workers, initializer=_init_worker,
                                  initargs=(opt, fm, rg_id))

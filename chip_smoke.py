@@ -6,18 +6,20 @@
 CLI takes, with its extension modes host (the default: harvester
 threads run every extension task, no ksw kernel) and waves (device
 waves beside the harvesters); and the pure-Python route
-(cli._mem(..., native=False), python_route() here). Phases 3, 4, 8 and
+(cli._mem(..., native=False), python_route() here), which also takes
+the regex markdup stage and the Python BAM encoder. Phases 3, 4, 8 and
 9 hold the pure-Python route; phases 6 and 7 run the native route with
---ext-mode waves; phase 10 runs the native route in both modes.
+--ext-mode waves; phase 10 runs the native route in both modes; phase
+11 holds the native host libraries to their Python versions.
 
 Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
      the torch/CUDA versions and the host's CPU count, and builds every
      CUDA kernel of the main paths from bwa_flow_tpu_torch/csrc/ and
-     the host libraries of the native route from csrc/host/ (one nvcc or
-     c++ per source, all started together, each timed); prints each
-     kernel's registers, shared memory and spills as ptxas reports
-     them.
+     the six host libraries from csrc/host/ (_chain, _region, _wave,
+     _native, _markdup, _bam; one nvcc or c++ per source, all started
+     together, each timed); prints each kernel's registers, shared
+     memory and spills as ptxas reports them.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
@@ -32,9 +34,11 @@ Phases:
      versions and to each other; and the int32 kernel on the same mix
      with 2^23 added to h0 (its wide-score path).
   3. the single-end path: a 4.6 Mbp repeat-realistic genome and 8192 x
-     151 bp reads (1% substitutions) from fixed seeds; `index`, then
+     151 bp reads (1% substitutions) from fixed seeds; `index` (its
+     seconds printed: the native SA-IS builds the suffix array), then
      `mem -t 8 --batch-reads 4096` on the card through the CLI on the
-     pure-Python route (int32 kernel). Every read must have exactly one primary record, >= 95%
+     pure-Python route (int32 kernel, regex markdup). Every read must
+     have exactly one primary record, >= 95%
      mapped, and the int32 kernel must have launched. Then a 256-read
      subset on the card and with --no-device (the port's host golden):
      the two SAMs must be byte-identical apart from @PG.
@@ -47,14 +51,15 @@ Phases:
      proper, the int16 kernel launched and the int32 one not; a 256-pair
      subset on the card equals its --no-device SAM apart from @PG.
      Phases 3 and 4 record CUDA events around every kernel call and print
-     each kernel's summed device time over its path.
+     each kernel's summed device time over its path, and the markdup
+     stage's class, duplicate count and seconds.
   5. each kernel at the mean wave size of the path that launched it
      (waves are trimmed to their filled slots): against its plain
      version, timed, with its bound; and the time a target row costs it
      (row_cost_ns), the latency that sets its time on the path.
   6. the sorted-BAM path: phase 4's paired-end run again with `--sort`
-     (default 512 buckets), on the native route with --ext-mode waves
-     and BWA_TPU_EXTEND16 unset, so its waves run the int32 kernel. The int32 kernel must have launched and the int16
+     (default 512 buckets), on the native route (native markdup, the
+     _bam encoder) with --ext-mode waves and BWA_TPU_EXTEND16 unset, so its waves run the int32 kernel. The int32 kernel must have launched and the int16
      one not; the BAM must inflate with gzip and end in the BGZF EOF
      block, carry the index's contigs, have non-decreasing sort keys
      with unmapped records last, and hold the same multiset of records
@@ -103,7 +108,9 @@ Phases:
      launch, no device task: the harvesters run every task) and
      --ext-mode waves (device waves: int32 for the reads, int16 for the
      pairs with BWA_TPU_EXTEND16=1), each SAM equal to phase 3's
-     full.sam or phase 4's pe.sam byte for byte apart from @PG; phase
+     full.sam or phase 4's pe.sam byte for byte apart from @PG (so
+     native markdup equals regex markdup over 8192 reads and 8192 pairs;
+     both runs' duplicate counts are printed); phase
      3's reads over two shards of the one card in waves mode
      (AlignPipeline(devices=[cuda:0, cuda:0]) through _mem), equal to
      full.sam; and a wave row corrupted before the native driver's
@@ -119,14 +126,29 @@ Phases:
      the run launched, the launch nearest the class's mean width is
      run again against the plain version on the same inputs (tolerance
      0), timed, with its bound.
- 11. one JSON line describing the kernels (launches on the native
+ 11. the host libraries against their Python versions on the card's
+     host, each side timed: (a) _native.sais against suffix_array on
+     both strands of the genome's first 1 Mbp and on tests/test_index.py's
+     adversarial texts; (b) ksw_extend2 and ksw_global2 (with CIGAR)
+     against ksw_extend2_py and ksw_global2_py on 2000 tasks of
+     make_ext_tasks; (c) NativeMarkDupStage against the regex
+     MarkDupStage on pe.sam with its first 512 pairs repeated under new
+     names (equal SAM, both duplicate counts >= 512); (d) bucket writes
+     and the merge of pe.sam through the _bam encoder and the Python
+     one (equal inflated BAMs), and a malformed SAM line given to
+     _bam.sam_to_bam in a subprocess, which must exit 1 with ValueError,
+     not die by a signal; (e) phase 3's index loaded with RESAMPLE_MIN =
+     0: sa_intv 32 -> 4, the table every 4th entry of the full SA, then
+     phase 9's reads with BWA_TPU_DENSE_SA_MAX=0 on the LF walk over it,
+     records equal to phase 9's default run.
+ 12. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
      under "native_classes"; python_path_* at the pure-Python route's
      mean wave; *_b4096 at B=4096; launches on each path) and, under
-     "host_libraries", the native route's host libraries and their
-     build seconds; the device line; and as the last line {"ok": true,
-     "device": {...}}.
+     "host_libraries", the six host libraries with their build seconds
+     and phase 11's times; the device line; and as the last line {"ok":
+     true, "device": {...}}.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -809,7 +831,7 @@ def launch_times(log: dict, tag: str) -> dict:
 
 
 def build_everything(_build) -> dict:
-    """Build both CUDA kernels and the three host libraries, one thread
+    """Build both CUDA kernels and the six host libraries, one thread
     (one nvcc or c++) each, all at once; prints and returns each build's
     seconds (0 when it was built already)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -852,6 +874,50 @@ def python_route():
         cli._mem = real
 
 
+@contextlib.contextmanager
+def markdup_stages():
+    """While the block runs, every markdup stage a `mem` run makes is
+    recorded; yields the list of records: the stage, its class name, and
+    the seconds and calls of its process()."""
+    from bwa_flow_tpu_torch.dedup import markdup
+
+    real = markdup.make_markdup_stage
+    seen: list = []
+
+    def make(*a, **k):
+        stage = real(*a, **k)
+        rec = dict(stage=stage, cls=type(stage).__name__, s=0.0, calls=0)
+        process = stage.process
+
+        def timed(reads):
+            t0 = time.perf_counter()
+            process(reads)
+            rec["s"] += time.perf_counter() - t0
+            rec["calls"] += 1
+        stage.process = timed
+        seen.append(rec)
+        return stage
+    markdup.make_markdup_stage = make
+    try:
+        yield seen
+    finally:
+        markdup.make_markdup_stage = real
+
+
+def markdup_summary(tag: str, seen: list, want_cls: str) -> dict:
+    """The one markdup stage of a run: prints and returns its class,
+    duplicate count and seconds; raises unless it is want_cls."""
+    if len(seen) != 1 or seen[0]["cls"] != want_cls:
+        raise SystemExit(f"{tag}: markdup stages "
+                         f"{[r['cls'] for r in seen]}, not one {want_cls}")
+    r = seen[0]
+    out = dict(cls=r["cls"], dup_count=r["stage"].state.dup_count,
+               s=r["s"], calls=r["calls"])
+    print(f"[{tag}] markdup ({out['cls']}): {out['dup_count']} duplicate "
+          f"blocks, {out['s']:.4f} s over {out['calls']} batches")
+    return out
+
+
 def _records(path: Path) -> list[list[str]]:
     return [l.split("\t") for l in path.read_text().splitlines()
             if l and not l.startswith("@")]
@@ -870,10 +936,16 @@ def phase_main_path(work: Path, device: str) -> dict:
     from bwa_flow_tpu_torch.ops import extend_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
 
+    from bwa_flow_tpu_torch.index import build
+
     t0 = time.perf_counter()
-    assert cli.main(["index", str(work / "ref.fa")]) == 0
+    with timed_calls(build, "suffix_array_sais") as t_sa, \
+            timed_calls(cli, "save_index") as t_save:
+        assert cli.main(["index", str(work / "ref.fa")]) == 0
     t_index = time.perf_counter() - t0
-    print(f"[main] index of {GENOME_LEN} bp: {t_index:.1f} s")
+    print(f"[main] index of {GENOME_LEN} bp: {t_index:.2f} s (SA-IS "
+          f"suffix array {t_sa['s']:.2f} s, writing the files "
+          f"{t_save['s']:.2f} s)")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
@@ -882,12 +954,13 @@ def phase_main_path(work: Path, device: str) -> dict:
     tracer.totals.clear()
     tracer.counts.clear()
     t0 = time.perf_counter()
-    with timed_launches() as log:
+    with timed_launches() as log, markdup_stages() as mds:
         assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
                          "--device", device, "-o", str(work / "full.sam"),
                          str(work / "ref.fa"), str(work / "reads.fq")]) == 0
     dt = time.perf_counter() - t0
     path = launch_times(log, "main")
+    mdup = markdup_summary("main", mds, "MarkDupStage")
     launches = extend_cuda.n_launches
     launches16 = extend_cuda.n_launches16
     st = dict(cli.last_run_stats)
@@ -942,7 +1015,9 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"({len(dev_sam)} lines)")
     return dict(launches=launches, reads_per_s=N_READS / dt,
                 seed_s_per_batch=seed_per_batch, stats=st, peak=peak,
-                path=path["ksw_extend2"], wall_s=dt, spans=spans)
+                path=path["ksw_extend2"], wall_s=dt, spans=spans,
+                index_s=t_index, index_sa_s=t_sa["s"],
+                index_save_s=t_save["s"], markdup=mdup)
 
 
 def phase_pe_path(work: Path, device: str) -> dict:
@@ -965,13 +1040,14 @@ def phase_pe_path(work: Path, device: str) -> dict:
         tracer.totals.clear()
         tracer.counts.clear()
         t0 = time.perf_counter()
-        with timed_launches() as log:
+        with timed_launches() as log, markdup_stages() as mds:
             assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
                              "--device", device, "-o", str(work / "pe.sam"),
                              ref, str(work / "r1.fq"),
                              str(work / "r2.fq")]) == 0
         dt = time.perf_counter() - t0
         path = launch_times(log, "pe")
+        mdup = markdup_summary("pe", mds, "MarkDupStage")
         launches = extend_cuda.n_launches
         launches16 = extend_cuda.n_launches16
         st = dict(cli.last_run_stats)
@@ -1030,7 +1106,7 @@ def phase_pe_path(work: Path, device: str) -> dict:
     print(f"[pe] {N_SUB}-pair subset: device SAM == --no-device SAM "
           f"({len(dev_sam)} lines)")
     return dict(launches=launches16, pairs_per_s=N_PAIRS / dt, stats=st,
-                peak=peak, path=path["ksw_extend2_i16"])
+                peak=peak, path=path["ksw_extend2_i16"], markdup=mdup)
 
 
 def phase_sort_path(work: Path, device: str) -> dict:
@@ -1100,7 +1176,26 @@ def phase_sort_path(work: Path, device: str) -> dict:
           f"last), keys non-decreasing, refs == index, records == phase "
           f"4's pe.sam as BAM (int32 kernel == int16 kernel over "
           f"{N_PAIRS} pairs); header {text.count(chr(10))} lines")
-    return dict(launches=launches, path=path["ksw_extend2"])
+
+    # the merge again, alone, on the run's buckets: _bam and Python
+    paths = sorted(str(p) for p in (work / "sort_tmp").glob("*.bamr"))
+    payload = gzip.decompress(data)
+    remerge = {}
+    for native in (True, False):
+        dst = work / f"pe_remerge_{int(native)}.bam"
+        t0 = time.perf_counter()
+        sort.merge_sorted_bam(paths, str(dst), anns, text, native=native)
+        remerge[native] = time.perf_counter() - t0
+        if gzip.decompress(dst.read_bytes()) != payload:
+            raise SystemExit(f"the merge again (native={native}) differs "
+                             "from pe.bam after inflation")
+    print(f"[sort] the merge again on the run's {len(paths)} buckets: "
+          f"_bam {remerge[True]:.3f} s, Python {remerge[False]:.3f} s "
+          f"(in the run: {merge['s']:.3f} s); both == pe.bam inflated")
+    return dict(launches=launches, path=path["ksw_extend2"],
+                write_s=writes["s"], merge_s=merge["s"],
+                remerge_native_s=remerge[True],
+                remerge_python_s=remerge[False])
 
 
 def _free_port() -> int:
@@ -1356,10 +1451,10 @@ def _head_fastq(src: Path, dst: Path, n: int) -> Path:
     return dst
 
 
-def _cli_run(tag: str, argv: list) -> dict:
+def _cli_run(tag: str, argv: list, phase: str = "p9") -> dict:
     """One in-process `mem` run through the CLI with the kernels' counts
-    and the spans set to 0 just before it; returns its wall s, launches
-    of each kernel, stats and spans."""
+    and the spans set to 0 just before it; prints it under [phase] and
+    returns its wall s, launches of each kernel, stats and spans."""
     from bwa_flow_tpu_torch import cli
     from bwa_flow_tpu_torch.ops import extend_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
@@ -1375,7 +1470,7 @@ def _cli_run(tag: str, argv: list) -> dict:
     out = dict(wall_s=dt, launches=extend_cuda.n_launches,
                launches16=extend_cuda.n_launches16, stats=st, spans=spans,
                seed_s_per_batch=st["seed_s"] / max(1, st["seed_batches"]))
-    print(f"[p9] {tag}: {dt:.2f} s; spans seed {spans.get('seed', 0)} s, "
+    print(f"[{phase}] {tag}: {dt:.2f} s; spans seed {spans.get('seed', 0)} s, "
           f"sa {spans.get('sa', 0)} s, extend_waves "
           f"{spans.get('extend_waves', 0)} s; seed_s "
           f"{out['seed_s_per_batch']:.3f} s/batch over "
@@ -1771,7 +1866,7 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     tracer.counts.clear()
     try:
         t0 = time.perf_counter()
-        with timed_launches(capture) as log:
+        with timed_launches(capture) as log, markdup_stages() as mds:
             if devices is None:
                 assert cli.main(["mem"] + argv) == 0
             else:
@@ -1782,13 +1877,15 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     finally:
         os.environ.pop("BWA_TPU_EXTEND16", None)
     path = launch_times(log, f"p10 {tag}")
+    mdup = markdup_summary(f"p10 {tag}", mds, "NativeMarkDupStage")
     st = dict(cli.last_run_stats)
     spans = {k: round(v, 3) for k, v in sorted(tracer.totals.items())}
     pairs = len([a for a in argv if a.endswith(".fq")]) == 2
     n = N_PAIRS if pairs else N_READS
     out = dict(wall_s=dt, rate=n / dt, launches=extend_cuda.n_launches,
                launches16=extend_cuda.n_launches16, stats=st, spans=spans,
-               device_ms={k: v["device_ms"] for k, v in path.items()})
+               device_ms={k: v["device_ms"] for k, v in path.items()},
+               markdup=mdup)
     keys = ("waves", "ext_tasks_device", "ext_tasks_host", "host_oversize_q",
             "host_oversize_t", "host_sched", "band_retries")
     print(f"[p10] {tag}: {dt:.2f} s, {n / dt:.1f} "
@@ -1876,11 +1973,13 @@ cli.entry_main(sys.argv[2:])
 """
 
 
-def phase_native_route(work: Path, device: str) -> dict:
+def phase_native_route(work: Path, device: str, regex_md: dict) -> dict:
     """The native route at phase 3's and phase 4's full width: host and
     waves modes, single-end and paired-end, each SAM equal to the
-    pure-Python route's; two shards of the one card in waves mode; a
-    corrupted wave row before the native apply."""
+    pure-Python route's (native markdup against the regex stage, whose
+    phase 3 and 4 summaries regex_md holds by SAM name); two shards of
+    the one card in waves mode; a corrupted wave row before the native
+    apply."""
     import torch
 
     from bwa_flow_tpu_torch.pipeline import batch
@@ -1906,6 +2005,14 @@ def phase_native_route(work: Path, device: str) -> dict:
         if _body(out) != _body(work / want):
             raise SystemExit(f"phase 10 {tag}: the SAM differs from "
                              f"{want}")
+        nat_dups, py_dups = r["markdup"]["dup_count"], \
+            regex_md[want]["dup_count"]
+        print(f"[p10] {tag}: markdup duplicate blocks, native "
+              f"{nat_dups} ({r['markdup']['s']:.4f} s), regex {py_dups} "
+              f"({regex_md[want]['s']:.4f} s)")
+        if nat_dups != py_dups:
+            raise SystemExit(f"phase 10 {tag}: native markdup counted "
+                             f"{nat_dups} duplicates, regex {py_dups}")
         st = r["stats"]
         if mode == "host":
             ok = r["launches"] == r["launches16"] == 0 \
@@ -1992,6 +2099,249 @@ def phase_native_route(work: Path, device: str) -> dict:
     return runs
 
 
+# ----------------------------------------------------------- phase 11
+
+P11_SA_LEN = 1_000_000       # genome bp whose two strands (a) sorts
+P11_TASKS = 2000             # extension tasks of (b)
+P11_DUP_PAIRS = 512          # pe.sam pairs (c) repeats under new names
+
+# a malformed SAM line (an unknown CIGAR op) given to _bam.sam_to_bam:
+# ValueError, exit 1
+_MALFORMED_SCRIPT = """\
+import sys
+from bwa_flow_tpu_torch import _build
+try:
+    _build.host_module("_bam").sam_to_bam(
+        "r\\t0\\tc1\\t10\\t60\\t4Z\\t*\\t0\\t0\\tACGT\\tIIII\\n", b"c1\\x00")
+except ValueError as e:
+    print("ValueError:", e)
+    sys.exit(1)
+print("no error")
+"""
+
+
+def _sais_cases():
+    """tests/test_index.py's adversarial texts, from a fixed seed."""
+    rng = np.random.default_rng(0x5A15)
+    cases = [rng.integers(0, 4, n).astype(np.uint8)
+             for n in (1, 2, 7, 64, 1000, 65537)]
+    return cases + [np.zeros(100, np.uint8),
+                    np.tile(np.array([3, 0], np.uint8), 500),
+                    np.tile(np.array([1, 1, 0], np.uint8), 333),
+                    np.arange(4, dtype=np.uint8).repeat(25)]
+
+
+def _timed(fn, *a):
+    t0 = time.perf_counter()
+    out = fn(*a)
+    return out, time.perf_counter() - t0
+
+
+def _sam_reads(path: Path, dup_pairs: int):
+    """pe.sam as Reads (one a run of lines of a QNAME and mate), FLAG
+    1024 cleared, with its first dup_pairs pairs repeated at the end
+    under new names."""
+    from bwa_flow_tpu_torch.io.sam import Read
+
+    groups: list = []
+    key = None
+    for line in path.read_text().splitlines(True):
+        if line.startswith("@"):
+            continue
+        f = line.split("\t", 2)
+        flag = int(f[1])
+        k = (f[0], flag & 0xC0)
+        if k != key:
+            groups.append([f[0], []])
+            key = k
+        groups[-1][1].append(f"{f[0]}\t{flag & ~0x400}\t{f[2]}")
+    reads = [(n, "".join(ls)) for n, ls in groups]
+    for n, sam in reads[:2 * dup_pairs]:
+        reads.append((f"dup_{n}", "".join(f"dup_{l}" for l in
+                                          sam.splitlines(True))))
+    return [Read(name=n, seq=np.zeros(0, np.uint8), sam=s)
+            for n, s in reads]
+
+
+def phase_host_libraries(work: Path, genome: np.ndarray,
+                         device: str) -> dict:
+    """Each host library of this slice against its Python version on the
+    card's host, both timed: (a) SA-IS, (b) ksw_extend2/ksw_global2, (c)
+    markdup, (d) the BAM encoder (bucket writes, merge) and a malformed
+    line, (e) SA re-sampling at load and the LF walk over its table."""
+    import copy
+    import gzip
+
+    from bwa_flow_tpu_torch import _build
+    from bwa_flow_tpu_torch.dedup import markdup
+    from bwa_flow_tpu_torch.index import build, io as idx_io
+    from bwa_flow_tpu_torch.index.suffix import suffix_array
+    from bwa_flow_tpu_torch.ops import ksw, smem_torch
+    from bwa_flow_tpu_torch.pipeline import sort
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    res: dict = {}
+    # (a) SA-IS against prefix doubling
+    fwd = genome[:P11_SA_LEN].astype(np.uint8)
+    both = np.concatenate([fwd, (3 - fwd)[::-1]])
+    got, t_nat = _timed(build.suffix_array_sais, both)
+    want, t_py = _timed(suffix_array, both)
+    if not np.array_equal(got, want):
+        raise SystemExit("phase 11 (a): SA-IS differs from suffix_array")
+    t_cases = [0.0, 0.0]
+    for seq in _sais_cases():
+        g, tn = _timed(build.suffix_array_sais, seq)
+        w, tp = _timed(suffix_array, seq)
+        t_cases[0] += tn
+        t_cases[1] += tp
+        if not np.array_equal(g, w):
+            raise SystemExit(f"phase 11 (a): SA-IS differs on an "
+                             f"adversarial text of {len(seq)} symbols")
+    res["sais"] = dict(symbols=len(both), native_s=t_nat, python_s=t_py,
+                       cases_native_s=t_cases[0], cases_python_s=t_cases[1])
+    print(f"[p11] (a) SA-IS == suffix_array on both strands of "
+          f"{P11_SA_LEN} bp ({len(both)} symbols): native {t_nat:.3f} s, "
+          f"prefix doubling {t_py:.3f} s; the 10 adversarial texts: "
+          f"{t_cases[0]:.4f} s against {t_cases[1]:.3f} s")
+
+    # (b) ksw_extend2 and ksw_global2 against their NumPy versions
+    opt = MemOpt()
+    q, ql, t, tl, h0 = make_ext_tasks(np.random.default_rng(0x11B), genome,
+                                      P11_TASKS)
+    tasks = [(int(ql[i]), q[i, :ql[i]].astype(np.uint8), int(tl[i]),
+              t[i, :tl[i]].astype(np.uint8), int(h0[i]))
+             for i in range(P11_TASKS) if ql[i] > 0]
+    sc = (opt.o_del, opt.e_del, opt.o_ins, opt.e_ins)
+
+    def ext(fn):
+        return [fn(a, qa, b, ta, opt.mat, *sc, opt.w, opt.pen_clip5,
+                   opt.zdrop, h) for a, qa, b, ta, h in tasks]
+
+    def glob(fn):     # the query against the window's first qlen + 5 bp
+        return [fn(a, qa, min(b, a + 5), ta, opt.mat, *sc, opt.w, True)
+                for a, qa, b, ta, _ in tasks if b > 0]
+    for name, run, nat, py in (
+            ("ksw_extend2", ext, ksw.ksw_extend2, ksw.ksw_extend2_py),
+            ("ksw_global2", glob, ksw.ksw_global2, ksw.ksw_global2_py)):
+        g, tn = _timed(run, nat)
+        w, tp = _timed(run, py)
+        if g != w:
+            bad = sum(a != b for a, b in zip(g, w))
+            raise SystemExit(f"phase 11 (b): {name} differs from its "
+                             f"NumPy version on {bad} of {len(g)} tasks")
+        res[name] = dict(tasks=len(g), native_s=tn, python_s=tp)
+        print(f"[p11] (b) {name} == {name}_py on {len(g)} tasks: native "
+              f"{tn:.4f} s, NumPy {tp:.3f} s")
+
+    # (c) native against regex markdup, duplicates injected
+    reads = _sam_reads(work / "pe.sam", P11_DUP_PAIRS)
+    fm = idx_io.load_index(str(work / "ref.fa"))
+    outs = {}
+    for native in (True, False):
+        rs = copy.deepcopy(reads)
+        stage = markdup.make_markdup_stage(fm, ignore_unmated=True,
+                                           native=native)
+        t0 = time.perf_counter()
+        for i in range(0, len(rs), BATCH):
+            stage.process(rs[i:i + BATCH])
+        dt = time.perf_counter() - t0
+        outs[native] = ([r.sam for r in rs], stage.state.dup_count, dt,
+                        type(stage).__name__)
+    (n_sam, n_dup, n_s, n_cls), (p_sam, p_dup, p_s, p_cls) = \
+        outs[True], outs[False]
+    print(f"[p11] (c) markdup of {len(reads)} reads ({P11_DUP_PAIRS} "
+          f"pairs repeated): {n_cls} {n_dup} duplicate blocks in "
+          f"{n_s:.4f} s, {p_cls} {p_dup} in {p_s:.3f} s")
+    if n_sam != p_sam or n_dup != p_dup or n_dup < P11_DUP_PAIRS:
+        raise SystemExit("phase 11 (c): native and regex markdup differ, "
+                         f"or fewer than {P11_DUP_PAIRS} duplicates")
+    res["markdup"] = dict(reads=len(reads), dup_count=n_dup, native_s=n_s,
+                          python_s=p_s)
+
+    # (d) bucket writes and merge through both encoders
+    anns = fm.bns.anns
+    hdr = "@HD\tVN:1.6\tSO:coordinate\n"
+    sams = [r.sam for r in reads[:len(reads) - 2 * P11_DUP_PAIRS]]
+    bams = {}
+    for native in (True, False):
+        tag = "native" if native else "python"
+        tmp = work / f"p11_buckets_{tag}"
+        bs = sort.BucketSort(anns, str(tmp), 512, native=native)
+        t0 = time.perf_counter()
+        for s in sams:        # one call a read, as the CLI's emit does
+            bs.write_sam_text(s)
+        t_write = time.perf_counter() - t0
+        paths = bs.close()
+        out = work / f"p11_{tag}.bam"
+        t0 = time.perf_counter()
+        sort.merge_sorted_bam(paths, str(out), anns, hdr, native=native)
+        t_merge = time.perf_counter() - t0
+        bams[native] = out.read_bytes()
+        res[f"bam_{tag}"] = dict(write_s=t_write, merge_s=t_merge)
+        shutil.rmtree(tmp)
+    same_bytes = bams[True] == bams[False]
+    print(f"[p11] (d) {len(sams)} reads of pe.sam into 512 buckets and "
+          f"merged: _bam writes {res['bam_native']['write_s']:.3f} s, merge "
+          f"{res['bam_native']['merge_s']:.3f} s; Python writes "
+          f"{res['bam_python']['write_s']:.3f} s, merge "
+          f"{res['bam_python']['merge_s']:.3f} s; compressed bytes "
+          f"{'equal' if same_bytes else 'differ'} (zlib "
+          f"{_build.host_module('_bam').zlib_version()} linked)")
+    if gzip.decompress(bams[True]) != gzip.decompress(bams[False]):
+        raise SystemExit("phase 11 (d): the _bam BAM differs from the "
+                         "Python encoder's after inflation")
+    script = work / "malformed_sam.py"
+    script.write_text(_MALFORMED_SCRIPT)
+    r = subprocess.run([sys.executable, str(script)], capture_output=True,
+                       text=True, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                       timeout=300)
+    print(f"[p11] (d) malformed SAM line to _bam.sam_to_bam in a "
+          f"subprocess: exit {r.returncode}, {r.stdout.strip()!r}")
+    if r.returncode != 1 or not r.stdout.startswith("ValueError"):
+        raise SystemExit(f"phase 11 (d): the malformed line gave exit "
+                         f"{r.returncode}: {r.stdout} {r.stderr[-2000:]}")
+
+    # (e) SA re-sampling at load, then the LF walk over its table
+    ref = str(work / "ref.fa")
+    contigs = build.parse_fasta(ref)
+    _, gfwd = build.encode_reference(contigs)
+    full = build.suffix_array_sais(np.concatenate([gfwd, (3 - gfwd)[::-1]]))
+    cache = Path(f"{ref}.tpu.sa4.npy")
+    idx_io.RESAMPLE_MIN = 0
+    os.environ["BWA_TPU_DENSE_SA_MAX"] = "0"
+    try:
+        fm4, t_load = _timed(idx_io.load_index, ref)
+        want = full[::4].copy()
+        want[0] = -1
+        if fm4.sa_intv != 4 or not np.array_equal(np.asarray(fm4.sa), want):
+            raise SystemExit(f"phase 11 (e): sa_intv {fm4.sa_intv}, or the "
+                             "table is not every 4th entry of the SA")
+        print(f"[p11] (e) load_index with RESAMPLE_MIN = 0: sa_intv 32 -> "
+              f"4 in {t_load:.3f} s (os.cpu_count() {os.cpu_count()} "
+              f"threads), table == SA[::4] ({len(want)} entries)")
+        fq = str(work / "p9_reads.fq")
+        with _recording(smem_torch, "sa_batch",
+                        lambda a: int(a[0].sa_intv)) as intvs:
+            run = _cli_run("(e) resampled SA, LF walk", [
+                "-t", "8", "--batch-reads", str(BATCH), "--device", device,
+                "-o", str(work / "p11_resampled.sam"), ref, fq], "p11")
+    finally:
+        idx_io.RESAMPLE_MIN = 1 << 28
+        del os.environ["BWA_TPU_DENSE_SA_MAX"]
+        cache.unlink(missing_ok=True)
+    if set(intvs) != {4}:
+        raise SystemExit(f"phase 11 (e): the LF walks ran at intervals "
+                         f"{set(intvs)}, not 4")
+    if _body(work / "p11_resampled.sam") != _body(work / "p9_default.sam"):
+        raise SystemExit("phase 11 (e): the resampled run's SAM differs "
+                         "from phase 9's default run")
+    print(f"[p11] (e) {P9_READS} reads on the LF walk over the resampled "
+          f"table ({len(intvs)} walks): SAM == phase 9's default run")
+    res["resample"] = dict(load_s=t_load, walks=len(intvs),
+                           mem_s=run["wall_s"])
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2053,7 +2403,11 @@ def main() -> int:
                            "cuda")
         vres = timed_phase("9 validation and watchdog",
                            phase_validation_watchdog, WORK, "cuda", mres)
-    nres = timed_phase("10 native route", phase_native_route, WORK, "cuda")
+    nres = timed_phase("10 native route", phase_native_route, WORK, "cuda",
+                       {"full.sam": mres["markdup"],
+                        "pe.sam": pres["markdup"]})
+    hres = timed_phase("11 host libraries", phase_host_libraries, WORK,
+                       genome, "cuda")
     launches_by_path = {
         "ksw_extend2": {"single_end": mres["launches"],
                         "sort": sres["launches"],
@@ -2118,11 +2472,23 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     bres["max_abs_err"])
     kernels[0]["seed_extend_batch_ms_b4096"] = bres["ms"]
+    # phase 11's native and Python seconds, by the library that ran them
+    p11 = {"_native": {k: hres[k] for k in ("sais", "ksw_extend2",
+                                            "ksw_global2", "resample")},
+           "_markdup": {"markdup": hres["markdup"],
+                        "mem_se_native": nres["se_host"]["markdup"],
+                        "mem_se_regex": mres["markdup"],
+                        "mem_pe_native": nres["pe_host"]["markdup"],
+                        "mem_pe_regex": pres["markdup"]},
+           "_bam": {"native": hres["bam_native"],
+                    "python": hres["bam_python"]}}
     host_libs = [{"name": n, "source":
                   f"bwa_flow_tpu_torch/csrc/host/{n}.cpp",
-                  "replaces": f"native/{n}.cpp", "build_s": build_s[n]}
+                  "replaces": f"native/{n}.cpp", "build_s": build_s[n],
+                  "checked": p11.get(n)}
                  for n in _build.HOST_LIBS]
-    print(json.dumps({"kernels": kernels, "host_libraries": host_libs}))
+    print(json.dumps({"kernels": kernels, "host_libraries": host_libs,
+                      "index_s": mres["index_s"]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
