@@ -1,0 +1,276 @@
+// The seed program's pass 1 forward scan fused with pass 3 (LAST-like
+// seeding), one thread a lane, on NVIDIA Hopper (sm_90a).
+//
+// Replaces the XLA while_loop of bwa_flow_tpu/ops/smem_jax.py:400
+// (_p1p3_machine, :355-404). Same contract as the plain PyTorch version
+// bwa_flow_tpu_torch/ops/smem_torch.py::_p1p3_machine: lanes [0, B) are
+// pass 1's forward scans (one a read: pivot acquisition from the packed
+// symbol table, forward bwt_extend, break intervals recorded into the
+// lane's [3, NB] stores), lanes [B, 2B) pass 3's scans (pivot, forward
+// walk, a mem emitted into the lane's [4, NP3] slots when the interval
+// drops below max_mem_intv after min_seed_len). The step functions are
+// _fwd_pre2/_fwd_post and _p3_pre2/_p3_post written out for one lane.
+//
+// Why one thread can run a lane to its end: a lane reads only its own
+// state, its read's row of the symbol table and the index, and a lane in
+// mode 3 is a fixed point of the step. The plain version runs every lane
+// until all are in mode 3 or ITERS steps have passed; a lane that stops
+// at mode 3, or after ITERS steps of its own, ends in the same state, and
+// a lane left short of mode 3 sets its overflow bit as there. Every store
+// lands in the lane's own slots, so the outputs are equal bit for bit.
+// The state arrays are updated in place (the wrapper passes copies).
+//
+// What bounds it on the H100: a lane's steps are a serial chain of
+// dependent gathers (a table symbol, then two 32-byte FM rows), so it is
+// bound by latency, not by bytes: the bytes it must move, two FM rows and
+// a symbol a step plus the break writes, take a few microseconds at 3.35
+// TB/s. The index (a 4.6 Mbp genome: ~4.6 MB of rows) sits in the 50 MB
+// L2, so a gather costs an L2 hit. Design: the state in registers, rows
+// through the read-only cache, 128 threads a block, the two passes in
+// separate blocks when B is a multiple of 128.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "seed_fm.cuh"
+
+namespace {
+
+using seedfm::clampi;
+using seedfm::FM;
+
+template <typename T>
+struct P1P3Args {
+  int B, L, NB, NP3, iters, min_seed_len;
+  long long max_mem_intv;
+  const int32_t* sym;      // [2 * B * L]: symbols, then the pivot table
+  const int32_t* read_id;  // pass 1 [B]
+  const int32_t* qlen1;    // pass 1 [B]
+  const int32_t* qlen3;    // pass 3 [B]
+  // pass 1 state
+  int32_t *mode1, *x1, *i1, *info1, *g1, *nb1;
+  T* ik1;                  // [B, 3]
+  T* brk_kls;              // [B, 3, NB]
+  int32_t* brk_meta;       // [B, 3, NB]: (ik_info, x, g)
+  uint8_t* ovf1;
+  // pass 3 state
+  int32_t *mode3, *x3, *i3;
+  T* ik3;                  // [B, 3]
+  T* mems;                 // [B, 4, NP3]: (k, l, s, info)
+  int32_t* n_mem;
+  uint8_t* ovf3;
+};
+
+template <typename T>
+__device__ __forceinline__ T pack_info(int start, int end) {
+  if (sizeof(T) == 4) return (T)((start << 16) | end);
+  return (T)(((long long)start << 32) | (long long)end);
+}
+
+template <typename T>
+__device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
+  const int L = a.L, NB = a.NB;
+  const int BL = a.B * L;
+  int mode = a.mode1[b], x = a.x1[b], i = a.i1[b];
+  int ik_info = a.info1[b], g = a.g1[b], nb = a.nb1[b];
+  bool ovf = a.ovf1[b] != 0;
+  T ik[3] = {a.ik1[3 * b], a.ik1[3 * b + 1], a.ik1[3 * b + 2]};
+  const int row = a.read_id[b] * L;
+  const int qlen = a.qlen1[b];
+  T* kls = a.brk_kls + (long long)b * 3 * NB;
+  int32_t* meta = a.brk_meta + (long long)b * 3 * NB;
+  for (int it = 0; it < a.iters && mode != 3; ++it) {
+    const bool m0 = mode == 0;
+    const int val = __ldg(a.sym + row + (m0 ? clampi(x, 0, L - 1) + BL
+                                            : clampi(i, 0, L - 1)));
+    // _fwd_pre2: pivot acquisition
+    const int cand = x < L ? (val >> 6) : L;
+    const bool found = cand < L;
+    if (m0) {
+      mode = found ? 1 : 3;
+      if (found) {
+        x = cand;
+        fm.set_intv((val >> 3) & 7, ik);
+        ik_info = x + 1;
+        i = x + 1;
+        ++g;
+      }
+    }
+    if (mode != 1) continue;
+    const int q_i = val & 7;
+    // _fwd_post after the shared probe
+    T okc[3];
+    fm.extend(ik, false, clampi(3 - q_i, 0, 3), okc);
+    const bool end_now = i >= qlen || q_i > 3;
+    const bool changed = okc[2] != ik[2];
+    const bool die = changed && okc[2] < (T)1;
+    const bool push = end_now || changed;
+    const bool to_next = end_now || die;
+    bool nb_ovf = false;
+    if (push) {
+      if (nb >= NB) {
+        nb_ovf = true;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) kls[c * NB + nb] = ik[c];
+        meta[nb] = ik_info;
+        meta[NB + nb] = x;
+        meta[2 * NB + nb] = g;
+        ++nb;
+      }
+    }
+    if (!to_next) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ik[c] = okc[c];
+      ik_info = i + 1;
+      i = i + 1;
+    } else {
+      // next pivot = end of the longest match (= the last push's end)
+      x = ik_info;
+      mode = 0;
+    }
+    if (nb_ovf) {
+      mode = 3;
+      ovf = true;
+    }
+  }
+  a.mode1[b] = mode;
+  a.x1[b] = x;
+  a.i1[b] = i;
+  a.info1[b] = ik_info;
+  a.g1[b] = g;
+  a.nb1[b] = nb;
+  a.ovf1[b] = (ovf || mode != 3) ? 1 : 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) a.ik1[3 * b + c] = ik[c];
+}
+
+template <typename T>
+__device__ void pass3_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
+  const int L = a.L, NP3 = a.NP3;
+  const int BL = a.B * L;
+  int mode = a.mode3[b], x = a.x3[b], i = a.i3[b], n = a.n_mem[b];
+  bool ovf = a.ovf3[b] != 0;
+  T ik[3] = {a.ik3[3 * b], a.ik3[3 * b + 1], a.ik3[3 * b + 2]};
+  const int row = b * L;
+  const int qlen = a.qlen3[b];
+  T* slots = a.mems + (long long)b * 4 * NP3;
+  for (int it = 0; it < a.iters && mode != 3; ++it) {
+    const bool m0 = mode == 0;
+    const int val = __ldg(a.sym + row + (m0 ? clampi(x, 0, L - 1) + BL
+                                            : clampi(i, 0, L - 1)));
+    // _p3_pre2
+    const int cand = x < L ? (val >> 6) : L;
+    const bool found = cand < L;
+    if (m0) {
+      mode = found ? 1 : 3;
+      if (found) {
+        x = cand;
+        fm.set_intv((val >> 3) & 7, ik);
+        i = x + 1;
+      }
+    }
+    if (mode != 1) continue;
+    const int q_i = val & 7;
+    // _p3_post
+    T okc[3];
+    fm.extend(ik, false, clampi(3 - q_i, 0, 3), okc);
+    const bool ended = i >= qlen;
+    const bool amb = !ended && q_i > 3;
+    const bool live = !ended && !amb;
+    const bool hit = live && (long long)okc[2] < a.max_mem_intv &&
+                     (i - x) >= a.min_seed_len;
+    if (hit && okc[2] > 0) {
+      if (n >= NP3) {
+        ovf = true;
+      } else {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) slots[c * NP3 + n] = okc[c];
+        slots[3 * NP3 + n] = pack_info<T>(x, i + 1);
+        ++n;
+      }
+    }
+    const int i_old = i;
+    if (live && !hit) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) ik[c] = okc[c];
+      i = i + 1;
+    }
+    if (ended) x = qlen;
+    else if (amb || hit) x = i_old + 1;
+    if (ended || amb || hit) mode = 0;
+  }
+  a.mode3[b] = mode;
+  a.x3[b] = x;
+  a.i3[b] = i;
+  a.n_mem[b] = n;
+  a.ovf3[b] = (ovf || mode != 3) ? 1 : 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) a.ik3[3 * b + c] = ik[c];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+    p1p3_kernel(P1P3Args<T> a, const void* blocks, const T* L2,
+                long long seq_len, long long primary) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 2 * a.B) return;
+  const FM<T> fm(blocks, L2, seq_len, primary);
+  if (t < a.B) pass1_lane(a, fm, t);
+  else pass3_lane(a, fm, t - a.B);
+}
+
+template <typename T>
+int launch(P1P3Args<T> a, const void* blocks, const void* L2,
+           long long seq_len, long long primary, cudaStream_t stream) {
+  const int threads = 128;
+  const int n = 2 * a.B;
+  if (n > 0)
+    p1p3_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
+        a, blocks, (const T*)L2, seq_len, primary);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+P1P3Args<T> args(int B, int L, int NB, int NP3, int iters, int min_seed_len,
+                 long long max_mem_intv, void* const* p) {
+  P1P3Args<T> a;
+  a.B = B; a.L = L; a.NB = NB; a.NP3 = NP3; a.iters = iters;
+  a.min_seed_len = min_seed_len; a.max_mem_intv = max_mem_intv;
+  a.sym = (const int32_t*)p[0];
+  a.read_id = (const int32_t*)p[1];
+  a.qlen1 = (const int32_t*)p[2];
+  a.qlen3 = (const int32_t*)p[3];
+  a.mode1 = (int32_t*)p[4]; a.x1 = (int32_t*)p[5]; a.i1 = (int32_t*)p[6];
+  a.info1 = (int32_t*)p[7]; a.g1 = (int32_t*)p[8]; a.nb1 = (int32_t*)p[9];
+  a.ik1 = (T*)p[10]; a.brk_kls = (T*)p[11];
+  a.brk_meta = (int32_t*)p[12]; a.ovf1 = (uint8_t*)p[13];
+  a.mode3 = (int32_t*)p[14]; a.x3 = (int32_t*)p[15]; a.i3 = (int32_t*)p[16];
+  a.ik3 = (T*)p[17]; a.mems = (T*)p[18]; a.n_mem = (int32_t*)p[19];
+  a.ovf3 = (uint8_t*)p[20];
+  return a;
+}
+
+}  // namespace
+
+// ptrs: the 21 device pointers of P1P3Args in its order (sym ... ovf3).
+// wide: coordinates int64 (else int32). Returns cudaGetLastError().
+extern "C" int seed_p1p3_launch(int wide, int B, int L, int NB, int NP3,
+                                int iters, int min_seed_len,
+                                long long max_mem_intv, void* const* ptrs,
+                                const void* fm_blocks, const void* L2,
+                                long long seq_len, long long primary,
+                                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (wide)
+    return launch(args<int64_t>(B, L, NB, NP3, iters, min_seed_len,
+                                max_mem_intv, ptrs),
+                  fm_blocks, L2, seq_len, primary, s);
+  return launch(args<int32_t>(B, L, NB, NP3, iters, min_seed_len,
+                              max_mem_intv, ptrs),
+                fm_blocks, L2, seq_len, primary, s);
+}
+
+extern "C" const char* seed_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

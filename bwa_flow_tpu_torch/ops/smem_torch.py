@@ -21,13 +21,21 @@ the same call (dense-SA gather, or the phased LF walk). Budgets are
 fixed; a read that exhausts one sets an OVF_* bit and is redone by a
 big-budget device call, then by the host golden.
 
-Each machine is a Python loop over torch steps whose stop condition is
-read from the device every few steps (a step on finished lanes changes
-nothing, so the extra steps are no-ops). Every such read, and every
-copy of a result to the host, goes through the `fetch` argument
-(fm_torch.to_host by default; the batch aligner passes its watchdog). Scatters with a drop sentinel
-write into buffers with one spare trailing slot that absorbs every
-dropped index.
+The three machines and cohort emission (the XLA loops of smem_jax) are
+hand-written CUDA kernels on the card (ops/smem_cuda.py, csrc/seed_*.cu),
+one thread a lane running the lane's loop to its end, so on the card
+the seed program of an index with a dense SA reads nothing from the
+device until its caller fetches the result. Each kernel's plain version
+stays here (_p1p3_machine, _fwd_scan_machine, _bwd_walk_machine,
+_cohort_emit), and the dispatching wrappers (p1p3_machine,
+fwd_scan_machine, bwd_walk_machine, cohort_emit) take it only for
+tensors on the CPU. A plain machine is a Python loop over torch steps
+whose stop condition is read from the device every CHECK_EVERY steps (a
+step on finished lanes changes nothing, so the extra steps are no-ops).
+Every such read, and every copy of a result to the host, goes through
+the `fetch` argument (fm_torch.to_host by default; the batch aligner
+passes its watchdog). Scatters with a drop sentinel write into buffers
+with one spare trailing slot that absorbs every dropped index.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import torch
 from ..index.fmindex import FMIndex
 from ..utils.opts import MemOpt
 from . import smem as smem_golden
+from . import smem_cuda
 from .fm_torch import (DeviceFM, occ4_batch, sa_batch, set_intv_batch,
                        to_host)
 
@@ -331,18 +340,29 @@ def _p1p3_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int, read_id,
     return s1, (mems3, s3["n_mem"], s3["ovf"] | (s3["mode"] != 3))
 
 
+def _bwd_lanes(CS: int, M: int) -> int:
+    """A, the worklist's lane count."""
+    return min(max(4 * CS, 2048), M)
+
+
+def _bwd_budget(M: int, L: int, A: int) -> int:
+    """ITB, the worklist's safety budget of steps: total work / A + one
+    longest walk (never binds)."""
+    return (M * (L + 2)) // A + L + 8
+
+
 def _bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
                       mi, alive0, CS: int, fetch):
     """Recorded break intervals walk backward via a persistent WORKLIST
-    of A active lanes over the front-packed break queue: a lane whose
-    walk dies writes its result and pulls the next queue entry, so the
-    step count is ~max(total_steps/A, longest walk).
+    of A active lanes (_bwd_lanes) over the front-packed break queue: a
+    lane whose walk dies writes its result and pulls the next queue
+    entry, so the step count is ~max(total_steps/A, longest walk).
 
     Returns (r int32[M] death step, bst [M, 3] state at maximal backward
     reach); lanes with alive0=False report r = i_b0."""
     M = i_b0.shape[0]
     dev = q_flat.device
-    A = min(max(4 * CS, 2048), M)
+    A = _bwd_lanes(CS, M)
     dt = bst0.dtype
     total = alive0.to(I32).sum(dtype=I32)        # live prefix
 
@@ -362,8 +382,7 @@ def _bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
     st0 = dict(qi=qi0, act=qi0 < total, bst=row0[:, :3],
                i_b=row0[:, 3].to(I32), rid=row0[:, 4].to(I32),
                mi=row0[:, 5], nxt=torch.clamp_max(total, A))
-    # safety budget: total work / A + one longest walk (never binds)
-    ITB = (M * (L + 2)) // A + L + 8
+    ITB = _bwd_budget(M, L, A)
 
     def write_dead(s, dead):
         widx = torch.where(dead, s["qi"], M)
@@ -432,6 +451,81 @@ def _cohort_emit(r, brk_g, valid, NB: int):
     return m_out
 
 
+def _on_card(t: torch.Tensor, who: str) -> bool:
+    """True for a CUDA tensor (its kernel runs), False for a CPU one (the
+    plain version runs); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{who}: tensors on {t.device}: expected cuda (the "
+                     "kernel) or cpu (the plain version)")
+
+
+def _copies(st: dict) -> dict:
+    return {k: v.clone() for k, v in st.items()}
+
+
+def p1p3_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int, read_id,
+                 qlen_l, st1, q2, qlen2, NP3: int, min_seed_len,
+                 max_mem_intv, st3, fetch):
+    """_p1p3_machine: on a CUDA tensor the seed_p1p3 kernel (one launch,
+    no read of the card), on a CPU tensor the plain version (its stop
+    reads through `fetch`). Same outputs; the inputs are not changed."""
+    if not _on_card(q2, "p1p3_machine"):
+        return _p1p3_machine(dfm, L, NB, ITERS, read_id, qlen_l, st1, q2,
+                             qlen2, NP3, min_seed_len, max_mem_intv, st3,
+                             fetch)
+    B = st1["mode"].shape[0]
+    s1, s3 = _copies(st1), _copies(st3)
+    smem_cuda.p1p3(dfm, L, NB, ITERS, NP3, min_seed_len, max_mem_intv,
+                   _sym_tab(q2, qlen2, L), read_id.to(I32).contiguous(),
+                   qlen_l.to(I32).contiguous(), qlen2.to(I32).contiguous(),
+                   s1, s3)
+    return s1, (_view3(s3["mems"], (B, 4, NP3)), s3["n_mem"], s3["ovf"])
+
+
+def fwd_scan_machine(dfm: DeviceFM, L: int, NB: int, ITERS: int, q_flat,
+                     read_id, qlen_l, mi, st0, fetch):
+    """_fwd_scan_machine: the seed_fwd kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    if not _on_card(q_flat, "fwd_scan_machine"):
+        return _fwd_scan_machine(dfm, L, NB, ITERS, q_flat, read_id,
+                                 qlen_l, mi, st0, fetch)
+    s = _copies(st0)
+    smem_cuda.fwd_scan(dfm, L, NB, ITERS, q_flat.contiguous(),
+                       read_id.to(I32).contiguous(),
+                       qlen_l.to(I32).contiguous(), mi.contiguous(), s)
+    return s
+
+
+def bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
+                     mi, alive0, CS: int, fetch):
+    """_bwd_walk_machine: the seed_bwd kernel (one thread a queue entry)
+    on a CUDA tensor, the plain version on a CPU one."""
+    if not _on_card(q_flat, "bwd_walk_machine"):
+        return _bwd_walk_machine(dfm, L, q_flat, read_id, bst0, i_b0, mi,
+                                 alive0, CS, fetch)
+    M = i_b0.shape[0]
+    total = alive0.to(I32).sum(dtype=I32)        # live prefix
+    return smem_cuda.bwd_walk(dfm, L, _bwd_budget(M, L, _bwd_lanes(CS, M)),
+                              q_flat.contiguous(),
+                              read_id.to(I32).contiguous(),
+                              bst0.contiguous(), i_b0.to(I32).contiguous(),
+                              mi.contiguous(), total)
+
+
+def cohort_emit(r, brk_g, valid, NB: int):
+    """_cohort_emit: the seed_cohort kernel (one thread a row) on a CUDA
+    tensor, the plain version on a CPU one."""
+    if not _on_card(r, "cohort_emit"):
+        return _cohort_emit(r, brk_g, valid, NB)
+    if brk_g.stride(1) != 1:
+        brk_g = brk_g.contiguous()
+    return smem_cuda.cohort_emit(r.to(I32).contiguous(), brk_g,
+                                 valid.contiguous())
+
+
 def _compact(vflat, budget: int):
     """Pack the True positions of vflat into `budget` dense lanes,
     order-preserving. Returns (src int32[budget] = flat index feeding
@@ -482,9 +576,11 @@ def _smem_pass_post(dfm: DeviceFM, L: int, NB: int, q_flat, read_id,
         perm = torch.argsort(order_key, stable=True)
         src = src[perm]
         lane_ok = _ar(PBUD, dev) < lane_ok.to(I32).sum(dtype=I32)
-        inv = torch.zeros(PBUD + 1, dtype=I32, device=dev)
+        # inv[PBUD] = PBUD: the dropped positions' lane stays the
+        # sentinel (filled on the device: a Python scalar set into a
+        # CUDA tensor is a blocking copy)
+        inv = torch.full((PBUD + 1,), PBUD, dtype=I32, device=dev)
         inv[perm] = _ar(PBUD, dev)
-        inv[PBUD] = PBUD
         dst = inv[dst.long()]                     # compose permutation
     srcl = src.long()
     lane_nl = (src // NB).long()
@@ -492,8 +588,8 @@ def _smem_pass_post(dfm: DeviceFM, L: int, NB: int, q_flat, read_id,
     i_b0 = i_b0_all[srcl]
     rid_b = read_id[lane_nl]
     mi_b = mi[lane_nl]
-    r_l, bst_l = _bwd_walk_machine(dfm, L, q_flat, rid_b, bst0, i_b0,
-                                   mi_b, lane_ok, CS, fetch)
+    r_l, bst_l = bwd_walk_machine(dfm, L, q_flat, rid_b, bst0, i_b0,
+                                  mi_b, lane_ok, CS, fetch)
     # scatter-back = gather through dst (index PBUD -> sentinel row)
     r_pad = torch.cat([r_l, torch.full((1,), BIG32, dtype=I32,
                                        device=dev)])
@@ -509,7 +605,7 @@ def _smem_pass_post(dfm: DeviceFM, L: int, NB: int, q_flat, read_id,
 
     # cohort emission: first break of each distinct-death-step cohort
     brk_g = brk_meta[:, 2, :]
-    m_prev = _cohort_emit(r, brk_g, valid, NB)
+    m_prev = cohort_emit(r, brk_g, valid, NB)
     emit = valid & (r < m_prev) & ((brk_end - (r + 1)) >= min_seed_len)
     info = _pack_info(r + 1, brk_end, bst.dtype)
     # bwa appends in death order: group ascending, slot descending
@@ -589,7 +685,7 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
                mems=torch.zeros(B * 4 * NP3 + 1, dtype=dt, device=dev),
                n_mem=torch.zeros(B, dtype=I32, device=dev),
                ovf=torch.zeros(B, dtype=torch.bool, device=dev))
-    s1, (mems3, n3, ovf3) = _p1p3_machine(
+    s1, (mems3, n3, ovf3) = p1p3_machine(
         dfm, L, NB, ITERS, rid, qlen, _fresh(B, NB, dt, dev), q, qlen,
         NP3, min_seed_len, max_mem_intv, st3, fetch)
     mems1, n1, ovf_f1, ovf_p1 = _smem_pass_post(
@@ -617,8 +713,8 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
     st2.update(mode=torch.where(tv, 1, 3).to(I32), x=tx, i=tx + 1,
                ik=set_intv_batch(dfm, qx.clamp(0, 3)), ik_info=tx + 1)
     qlen2 = qlen[rid2.long()]
-    s2 = _fwd_scan_machine(dfm, L, NB2, ITERS, q_flat, rid2, qlen2, tmi,
-                           st2, fetch)
+    s2 = fwd_scan_machine(dfm, L, NB2, ITERS, q_flat, rid2, qlen2, tmi,
+                          st2, fetch)
     mems2l, n2l, ovf2f, ovf2p = _smem_pass_post(
         dfm, L, NB2, q_flat, rid2, tmi, min_seed_len, s2, PBUD2, CS, fetch)
     ovf2l = ovf2f.to(I32) * OVF_P2_FWD + ovf2p.to(I32) * OVF_P2_POOL
@@ -627,7 +723,7 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
     # dense-front, so the flat entry order IS bwa's append order
     slot2 = _ar(NB2, dev)[None, :]
     v2 = ((slot2 < n2l[:, None]) & tv[:, None]).reshape(-1)
-    rid2e = rid2.repeat_interleave(NB2)               # entry -> read
+    rid2e = rid2[:, None].expand(-1, NB2).reshape(-1)  # entry -> read
     v32 = v2.to(I32)
     grank = torch.cumsum(v32, 0, dtype=I32) - v32
     cnt2 = torch.zeros(B, dtype=I32, device=dev).index_add_(
@@ -793,15 +889,29 @@ def _narrow(fm: FMIndex, L: int) -> bool:
     return fm.seq_len < 2**31 and L < 32768 and not FORCE_WIDE
 
 
+def _mark(dev: torch.device):
+    """A CUDA event recorded on `dev`'s current stream now (None on the
+    CPU): the end of the work queued so far, which a reader on another
+    stream waits for (pipeline/batch.py: BatchAligner._seed_fetch)."""
+    if dev.type != "cuda":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(dev))
+    return ev
+
+
 def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
                   reads: list[np.ndarray], L: int = 256,
                   MAXB: int = 64, MAXM: int = 128,
                   iters_factor: int = 16, padded=None,
                   fetch=to_host) -> dict:
-    """Run the device SMEM machine for a batch (its stop reads through
-    `fetch`); returns a handle for seed_collect_batch. The padded read
-    batch (device tensors) stays in the handle so the extension stage
-    can address it."""
+    """Queue the device SMEM machine for a batch on the current stream;
+    returns a handle for seed_collect_batch, whose "event" marks the
+    program's end on a card. With a dense SA nothing here reads the
+    card (the machines are kernels); without one the fused LF walk
+    reads its stop condition through `fetch`. The padded read batch
+    (device tensors) stays in the handle so the extension stage can
+    address it."""
     if padded is not None:
         q_dev, qlen_dev = padded
     else:
@@ -833,15 +943,29 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
         if occ_sa.shape[0] > 1:
             h["occ_sa_dev"] = occ_sa
         h["head"] = mems[:, :, :H]
+    h["event"] = _mark(q_dev.device)
     return h
+
+
+def _fire_post_redo(handle: dict) -> None:
+    """Call the handle's "_post_redo_dispatch" hook once: the batch's
+    last dependent device work is queued (JAX smem_jax.py:1264, :1289,
+    :1379)."""
+    cb = handle.pop("_post_redo_dispatch", None)
+    if cb is not None:
+        cb()
 
 
 def seed_collect_batch(handle: dict, fetch=to_host
                        ) -> smem_golden.IntvBatch:
     """Finish a seed_dispatch as an array-native IntvBatch, reading the
     device with `fetch`. Overflowed reads are redone by the big-budget
-    device machine, then by the golden implementation, and spliced
-    in."""
+    device machine (queued on the current stream; the handle's "event"
+    then marks its end), then by the golden implementation, and spliced
+    in. The handle's "_post_redo_dispatch" hook fires as soon as no
+    more device work of this batch is to come: with no redo, after the
+    results are read; else once the redo programs are queued, before
+    their results are read."""
     opt, fm, reads = handle["opt"], handle["fm"], handle["reads"]
     L, MAXM = handle["L"], handle["MAXM"]
     n = len(reads)
@@ -937,6 +1061,8 @@ def seed_collect_batch(handle: dict, fetch=to_host
                 if baseo[b] + t <= len(occ_np):
                     sa_vals[b] = occ_np[baseo[b]:baseo[b] + t]
     handle["sa_vals"] = sa_vals
+    if not redo.any():
+        _fire_post_redo(handle)
     if n and redo.sum() > ADAPT_THRESH * n:
         # overflow cliff on this index: escalate the pool profile for
         # every subsequent dispatch (one-way, capped at p2x=8)
@@ -955,6 +1081,7 @@ def seed_collect_batch(handle: dict, fetch=to_host
         todo = [int(b) for b in np.nonzero(redo)[0]]
         if DEVICE_REDO and handle.get("dfm") is not None:
             todo = _device_redo(handle, todo, repl, counts, sa_vals, fetch)
+        _fire_post_redo(handle)   # the redo skipped the device
         for b in todo:
             iv = smem_golden.collect_intv(opt, fm, reads[b])
             rb = smem_golden.IntvBatch.from_lists([iv])
@@ -1003,8 +1130,10 @@ ADAPT_THRESH = 0.05
 def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
                  fetch=to_host) -> list:
     """Re-run budget-overflowed reads with the big-budget device machine
-    and record replacement segments in ``repl``. Returns the residue
-    that must still go to the host golden."""
+    and record replacement segments in ``repl``. Every chunk's program
+    is queued first; then the handle's "event" marks their end and its
+    "_post_redo_dispatch" hook fires; then the results are read. Returns
+    the residue that must still go to the host golden."""
     opt, fm, dfm, reads = (handle[k] for k in ("opt", "fm", "dfm", "reads"))
     L, MAXB = handle["L"], handle["MAXB"]
     # OVF_MEMS overflows need more mem slots, not just bigger pools
@@ -1017,14 +1146,18 @@ def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
     params = _opt_params(opt)
     sa_s = int(fm.sa_intv) if (dfm.sa_dense is None
                                and fm.sa_intv <= 64) else 0
+    chunks = []
     for c0 in range(0, len(fit), REDO_B):
         sub = fit[c0:c0 + REDO_B]
         q, qlen = pad_reads([reads[b] for b in sub], L)
-        out = collect_intv_device(
+        chunks.append((sub, collect_intv_device(
             d, L, MAXB, MAXM, handle["iters"],
             torch.as_tensor(q, device=dfm.device),
             torch.as_tensor(qlen, device=dfm.device), *params, pack_H=0,
-            big=True, sa_intv_s=sa_s, fetch=fetch)
+            big=True, sa_intv_s=sa_s, fetch=fetch)))
+    handle["event"] = _mark(dfm.device)
+    _fire_post_redo(handle)
+    for sub, out in chunks:
         mems, n_mem, ovf, occ_sa, occ_total = (fetch(o) for o in out)
         ish = INFO_SHIFT[mems.dtype]
         ocnt_r = np.where(occ_total >= 0, occ_total, 0)

@@ -14,8 +14,10 @@ no shard_map, so here:
   - the index is replicated: one DeviceFM per device (replicate_fm);
   - each shard's program runs in a thread of its own (run_shards): torch
     releases the interpreter lock in its ops and blocking copies, so the
-    shards of different cards overlap; shards of one card take turns on
-    its stream;
+    shards of different cards overlap; the pipeline gives each shard on
+    a card a stream of its own for its seed program, and one for copying
+    its results back (shard_streams, on_stream), so two shards of one
+    card need not take turns on one stream;
   - a collective (psum) is the sum of the shards' tensors on the first
     device.
 
@@ -25,6 +27,7 @@ The production pipeline shards through the same pieces
 
 from __future__ import annotations
 
+import contextlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
@@ -80,6 +83,30 @@ def shard_reads(q, qlen, devices):
     """A padded [B, L] read batch and its lengths, sharded by rows:
     (list of q blocks, list of qlen blocks)."""
     return shard_rows(q, devices), shard_rows(qlen, devices)
+
+
+def shard_streams(devices) -> list:
+    """A new CUDA stream for each card of the list (None for a CPU
+    shard), each ordered after the work queued so far on its card's
+    current stream (the upload of the index and its replicas)."""
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type != "cuda":
+            out.append(None)
+            continue
+        s = torch.cuda.Stream(d)
+        s.wait_stream(torch.cuda.current_stream(d))
+        out.append(s)
+    return out
+
+
+def on_stream(stream):
+    """A context in which `stream` is the current stream of its card; no
+    change for None (a CPU shard)."""
+    if stream is None:
+        return contextlib.nullcontext()
+    return torch.cuda.stream(stream)
 
 
 def run_shards(fn: Callable[[int], object], n: int) -> list:

@@ -29,6 +29,17 @@ With several devices (`devices`), steps 1, 2 and 4 run per shard of the
 batch on each device's index replica (parallel/mesh.py); the host
 stages see the whole batch in read order, with global read ids.
 
+On a card each shard seeds on a stream of its own and copies its seed
+results back on another (mesh.shard_streams): the seed program, whose
+machines are kernels, is queued whole and marks its end with an event,
+the copies wait for that event only, and the extension waves on the
+device's default stream wait for the reads' upload. So a batch's
+results can be read while the next batch's seed program, queued early
+by the pipeline's hooks (seeds_collect's "_post_redo_dispatch",
+resolve_sa_flat's post_dispatch), runs. The seed program's reads are
+uploaded from page-locked memory without a wait (upload), so queueing
+it never waits behind the card's earlier work.
+
 Tasks too large for the device shapes run on the host scalar kernel
 inline. A device error, on any shard, propagates and fails the run. No
 route switches to the other on a failure. So do three checks the JAX
@@ -37,8 +48,9 @@ degrades to the host for the rest of the run:
 
   - the hang watchdog: every read of the device from the host goes
     through BatchAligner.fetch (every upload through put), which waits
-    for the device's queued work with a deadline (device_timeout) and
-    raises TimeoutError past it;
+    for the device's queued work on the copy's stream (for seed
+    results, the seed program's end event) with a deadline
+    (device_timeout) and raises TimeoutError past it;
   - the structural check of every wave row against its task's shape
     (bad_rows), always on: DeviceResultError;
   - with validate_every, a sample of every Nth batch's reads against the
@@ -47,6 +59,7 @@ degrades to the host for the rest of the run:
 
 from __future__ import annotations
 
+import functools
 import os
 import threading
 import time
@@ -69,7 +82,7 @@ from ..ops.chain2aln_torch import (DescTaskBuffer, narrow_desc,
 from ..ops.fm_torch import DeviceFM, sa_batch, to_host
 from ..ops.probe_layout import sa_probe_layout
 from ..ops.smem import IntvBatch
-from ..parallel.mesh import replicate_fm, run_shards
+from ..parallel.mesh import on_stream, replicate_fm, run_shards, shard_streams
 from ..utils.opts import MEM_F_PRIMARY5, MemOpt
 
 SA_CHUNK = 65536   # SA probes per device LF-walk call
@@ -292,13 +305,17 @@ class BatchAligner:
         self.dfm = DeviceFM.from_host(fm, self.device, fetch=self.fetch)
         self.smem_L = smem_L
         self.qmax, self.tmax = qmax, tmax
-        # one shard a device: its index replica and its two wave buffers
-        # (the streams ping-pong)
+        # one shard a device: its index replica, its two wave buffers
+        # (the streams ping-pong), and on a card the stream its seed
+        # program runs on and the stream its results are copied back on
+        # (parallel/mesh.py: shard_streams)
         self.shards = [
             dict(device=d, dfm=x, bufs=[DescTaskBuffer(wave_cap, qmax, tmax),
-                                        DescTaskBuffer(wave_cap, qmax, tmax)])
-            for d, x in zip(devs, [self.dfm] + replicate_fm(self.dfm,
-                                                            devs[1:]))]
+                                        DescTaskBuffer(wave_cap, qmax, tmax)],
+                 seed_stream=ss, copy_stream=cs)
+            for d, x, ss, cs in zip(
+                devs, [self.dfm] + replicate_fm(self.dfm, devs[1:]),
+                shard_streams(devs), shard_streams(devs))]
         # (lo, hi, padded reads on the shard's device) of each shard of
         # the batch seeded last: the device-resident reads of its waves
         self._dev_shards = None
@@ -309,6 +326,12 @@ class BatchAligner:
                       "host_sched": 0, "waves": 0, "band_retries": 0,
                       "validations": 0,
                       "seed_batches": 0, "seed_s": 0.0,
+                      # the hook that enqueued each next batch's seed
+                      # program (AlignPipeline.run), and the batches run
+                      # with the adaptive downgrade's late enqueue
+                      "enqueue_post_redo": 0, "enqueue_post_dispatch": 0,
+                      "enqueue_late": 0,
+                      "seed_downgrades": 0,
                       "shards": [dict(device=str(d), seed_s=0.0, waves=0,
                                       ext_tasks_device=0, launches=0,
                                       launches16=0) for d in devs]}
@@ -356,21 +379,42 @@ class BatchAligner:
         self.wait(device, abort)
         return torch.as_tensor(a, device=device)
 
+    @staticmethod
+    def upload(a, device) -> torch.Tensor:
+        """Host -> device copy that does not wait for the device, so it
+        needs no watchdog: to a card from page-locked memory, queued on
+        the current stream after its earlier work (torch's host allocator
+        keeps the page-locked buffer until the copy is done)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if torch.device(device).type != "cuda":
+            return t.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+
     # ------------------------------------------------------------------
-    def resolve_sa_flat(self, all_intvs, seed_handle: dict | None = None):
+    def resolve_sa_flat(self, all_intvs, seed_handle: dict | None = None,
+                        post_dispatch=None):
         """SA values of every (interval, occurrence) probe of the batch;
         returns (vals int64[NO], off int64[n+1], owners) in
         sa_probe_layout order. Reads whose values the seed program
         resolved (fused SA) need no probe; the rest go through batched
         device LF walks, chunks round-robin over the index replicas (any
         replica serves any probe), and walk overflows through the host
-        bwt_sa."""
+        bwt_sa. post_dispatch (indexes without a dense SA) is called
+        once every probe walk is on the card, before its results are
+        read (JAX batch.py:181-196): the pipeline enqueues the next
+        batch's seed program there."""
+        def fire():
+            nonlocal post_dispatch
+            cb, post_dispatch = post_dispatch, None
+            if cb is not None:
+                cb()
         # the owners triplets serve only the Python chain path; the
         # native route rebuilds them for the reads it sends there
         rows, offs, owners = sa_probe_layout(self.opt, all_intvs,
                                              build_owners=not self.native)
         vals_all = np.empty(len(rows), dtype=np.int64)
         if not len(rows):
+            fire()
             return vals_all, offs, owners
         need = None
         sav = (seed_handle or {}).get("sa_vals")
@@ -384,6 +428,7 @@ class BatchAligner:
                 else:
                     need_idx.append((lo, hi))
             if not need_idx:
+                fire()
                 return vals_all, offs, owners
             need = np.concatenate(
                 [np.arange(lo, hi) for lo, hi in need_idx])
@@ -393,6 +438,7 @@ class BatchAligner:
         dfm_sas = [s["dfm"].narrow() if narrow else s["dfm"]
                    for s in self.shards]
         pdt = np.int32 if narrow else np.int64
+        walks = []
         for ci, off in enumerate(range(0, len(rows), SA_CHUNK)):
             dfm_sa = dfm_sas[ci % len(dfm_sas)]
             chunk = rows[off:off + SA_CHUNK]
@@ -401,8 +447,11 @@ class BatchAligner:
                 width <<= 1
             pad = np.zeros(width, dtype=pdt)
             pad[:len(chunk)] = chunk
-            sa_t, ovf_t = sa_batch(dfm_sa, self.put(pad, dfm_sa.device),
-                                   256, int(self.fm.sa_intv), self.fetch)
+            walks.append((off, chunk) + sa_batch(
+                dfm_sa, self.put(pad, dfm_sa.device), 256,
+                int(self.fm.sa_intv), self.fetch))
+        fire()   # every probe walk is on the card; results pending
+        for off, chunk, sa_t, ovf_t in walks:
             vals = self.fetch(sa_t[:len(chunk)]).copy()
             ovf = self.fetch(ovf_t[:len(chunk)])
             for j in np.nonzero(ovf)[0]:
@@ -419,8 +468,12 @@ class BatchAligner:
         """Stage 1 (device SMEM seeding): cuts the batch into contiguous
         shards of ceil(n / devices) reads (fewer shards than devices when
         the batch is small), uploads each padded shard to its device and
-        runs the seed program on it, one thread a shard; the handle
-        feeds seeds_collect."""
+        runs the seed program on it, one thread a shard, each on its
+        shard's seed stream; the handle feeds seeds_collect. On a card
+        with a dense SA nothing here waits for the device: the uploads do
+        not (upload), and the seed program's kernels run each machine to
+        its end on the card, so this returns once the program is queued,
+        and its end event (smem_torch._mark) is in each shard's handle."""
         n = len(seqs)
         per = -(-max(n, 1) // len(self.shards))
         bounds = [(i, min(i + per, n)) for i in range(0, n, per)] or [(0, 0)]
@@ -429,13 +482,14 @@ class BatchAligner:
             lo, hi = bounds[k]
             sh = self.shards[k]
             q, qlen = smem_torch.pad_reads(seqs[lo:hi], self.smem_L)
-            q_dev = self.put(q, sh["device"])
-            qlen_dev = self.put(qlen, sh["device"])
-            t0 = time.perf_counter()
-            sub = smem_torch.seed_dispatch(self.opt, self.fm, sh["dfm"],
-                                           seqs[lo:hi], L=self.smem_L,
-                                           padded=(q_dev, qlen_dev),
-                                           fetch=self.fetch)
+            with on_stream(sh["seed_stream"]):
+                q_dev = self.upload(q, sh["device"])
+                qlen_dev = self.upload(qlen, sh["device"])
+                t0 = time.perf_counter()
+                sub = smem_torch.seed_dispatch(
+                    self.opt, self.fm, sh["dfm"], seqs[lo:hi],
+                    L=self.smem_L, padded=(q_dev, qlen_dev),
+                    fetch=self.fetch)
             self._stat("seed_s", time.perf_counter() - t0, shard=k)
             return q_dev, sub
 
@@ -444,25 +498,81 @@ class BatchAligner:
         self._stat("seed_s", time.perf_counter() - t0)
         return dict(n_reads=n, bounds=bounds, parts=parts)
 
+    def _seed_fetch(self, k: int, sub: dict):
+        """The fetch of shard k's seed results: on a card, the copy waits
+        for the event of the program that made them (sub["event"]: the
+        seed program's end, then a redo's) on the shard's copy stream,
+        and the watchdog watches that stream, so neither waits behind a
+        later batch's program queued on the seed stream."""
+        cs = self.shards[k]["copy_stream"]
+        if cs is None:
+            return self.fetch
+
+        def fetch(t):
+            ev = sub.get("event")
+            if ev is not None:
+                cs.wait_event(ev)
+            with on_stream(cs):
+                return self.fetch(t)
+        return fetch
+
     def seeds_collect(self, h: dict):
         """Finish a seeds_dispatch (each shard in its thread) as one
         array-native IntvBatch in read order; pins the shards' padded
         reads as the device-resident reads of the following extension
-        waves."""
+        waves. A shard's redo programs run on its seed stream. The
+        handle's "_post_redo_dispatch" hook (AlignPipeline.run), if any,
+        fires once every shard has queued its last dependent device
+        work: its redo programs, or none (smem_torch.seed_collect_batch,
+        JAX batch.py:375-378). The hook's time (the next batch's
+        seeds_dispatch, which counts its own) is left out of this
+        collect's seed_s."""
         self._stat("reads", h["n_reads"])
         parts = h["parts"]
         self._dev_shards = [(lo, hi, q_dev) for (lo, hi), (q_dev, _)
                             in zip(h["bounds"], parts)]
+        cb = h.pop("_post_redo_dispatch", None)
+        hook_s = [0.0] * len(parts)     # a shard's time in the hook
+        if cb is not None:
+            left = [len(parts)]
+            lock = threading.Lock()
+
+            def shard_done(k):
+                with lock:
+                    left[0] -= 1
+                    last = left[0] == 0
+                if last:
+                    t0 = time.perf_counter()
+                    try:
+                        cb()
+                    finally:
+                        hook_s[k] = time.perf_counter() - t0
+            for k, (_, sub) in enumerate(parts):
+                sub["_post_redo_dispatch"] = functools.partial(
+                    shard_done, k)
 
         def collect(k):
             t0 = time.perf_counter()
-            batch = smem_torch.seed_collect_batch(parts[k][1], self.fetch)
-            self._stat("seed_s", time.perf_counter() - t0, shard=k)
+            sub = parts[k][1]
+            with on_stream(self.shards[k]["seed_stream"]):
+                batch = smem_torch.seed_collect_batch(
+                    sub, self._seed_fetch(k, sub))
+            self._stat("seed_s", time.perf_counter() - t0 - hook_s[k],
+                       shard=k)
             return batch
 
         t0 = time.perf_counter()
         batches = run_shards(collect, len(parts))
-        self._stat("seed_s", time.perf_counter() - t0)
+        self._stat("seed_s", time.perf_counter() - t0 - sum(hook_s))
+        for q_dev, sub in parts:
+            if q_dev.device.type == "cuda":
+                # the waves read the padded reads on the device's default
+                # stream: after their upload (complete: the results were
+                # copied back after it), and never from a block the seed
+                # stream's allocator has handed out again
+                wave_stream = torch.cuda.default_stream(q_dev.device)
+                wave_stream.wait_event(sub["event"])
+                q_dev.record_stream(wave_stream)
         self._stat("seed_batches")
         h["sa_vals"] = [v for _, sub in parts
                         for v in (sub.get("sa_vals")
@@ -550,10 +660,10 @@ class BatchAligner:
         are taken HERE, on the caller's thread, because the caller goes
         on to seed the next batch, whose collect repoints them. One
         extension at a time. The worker's waves run on the device's
-        default stream, the stream the reads were made on, so they need
-        no cross-stream wait, and the watchdog's events (wait) watch the
-        stream the waves ran on; the price is that waves and the next
-        batch's seed program take turns on the device."""
+        default stream, which waits for the reads' upload on the seed
+        stream (seeds_collect), and the watchdog's events (wait) watch
+        the stream the waves ran on; the next batch's seed program runs
+        beside them on its own stream."""
         pinned = self._dev_shards
         box: dict = {}
         abort = threading.Event()

@@ -2,12 +2,20 @@
 in a worker pool or native code, batches in a two-deep software
 pipeline.
 
-Port of bwa_flow_tpu/pipeline/dataflow.py, both of its routes. On the
-native route (the default; pipeline/batch.py):
+Port of bwa_flow_tpu/pipeline/dataflow.py, both of its routes. Batch
+N+1's seed program is enqueued (dispatch_next, AlignPipeline.run) the
+moment batch N's last dependent device work is queued, from the hook
+that comes first: the seed collect's, after the redo programs (an index
+with a dense SA); the SA probes', after the probe walks (without one);
+or the pipeline's own call after a collect that succeeded. On a card
+the seed program's machines are kernels (ops/smem_cuda.py) on the
+shard's own seed stream, so the enqueue returns at once and the card
+seeds batch N+1 while the host finishes batch N. On the native route
+(the default; pipeline/batch.py):
 
   - the main thread collects batch N's seeds and SA values, then starts
     batch N's chaining and extension (BatchAligner.extend_async) in a
-    worker thread, and runs batch N+1's seed program while it goes;
+    worker thread;
   - batch N's packed regions feed the native tails in the tail thread
     (ops/region_native.py: se_tail_batch; pe_tail_batch, -I included),
     GIL released; the -V flag and qual-less reads take the Python tail
@@ -23,7 +31,7 @@ On the pure-Python route (`native=False`):
     reaches the workers by fork copy-on-write;
   - while batch N's host tail runs in the pool (from a background
     thread), batch N+1's chaining and device work run on the main
-    thread, then batch N+2's seed program;
+    thread, and the card seeds batch N+2;
   - finished batches are emitted in order on the main process.
 
 With several devices (`devices`), the batch aligner cuts each batch
@@ -37,7 +45,8 @@ ksw_align2 is host code) and never touch torch.cuda.
 With validate_every > 0, a sample of every Nth batch's regions is held
 to the golden model before the batch's tail starts (_validate_sample); a
 mismatch raises DeviceResultError and the run fails, as does a
-TimeoutError of the batch aligner's watchdog (device_timeout).
+TimeoutError of the batch aligner's watchdog (device_timeout), and an
+error of the early enqueue (raised at the next seeds collect).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import copy
 import functools
 import multiprocessing as mp
 import threading
+import time
 from typing import Callable, Iterable
 
 from .. import _build
@@ -138,6 +148,9 @@ class AlignPipeline:
         self.rg_id = rg_id
         self.n_workers = n_workers
         self.pool = None
+        # the adaptive downgrade of the early enqueue (run)
+        self._best_seed_s = float("inf")
+        self._slow_seed_streak = 0
         _init_worker(opt, fm, rg_id)
         if n_workers > 0:
             # before the device upload below: the workers fork from a
@@ -261,46 +274,91 @@ class AlignPipeline:
     # -- the pipeline --------------------------------------------------
     def run(self, batches: Iterable[list[Read]],
             emit: Callable[[list[Read]], None]) -> int:
-        """Pipelined batch loop: collect batch N's seeds and SA values;
-        join batch N-1's extension and start its host tail
-        (_finish_batch), which overlaps what follows; start batch N's
-        extension (_extend: on the native route in a worker thread,
-        beside batch N+1's seed program, which runs next on this
-        thread; seeds_dispatch blocks, so on the pure-Python route the
-        order of the two costs no overlap). Calls emit(batch) in order
-        with .sam filled; returns
-        reads processed. On an error, an extension in flight is abandoned
-        (its device waits give up at once) and waited for, since its
-        harvesters hold the driver; then the error is raised."""
+        """Pipelined batch loop (JAX dataflow.py:340-470): collect batch
+        N's seeds and SA values; join batch N-1's extension and start
+        its host tail (_finish_batch), which overlaps what follows;
+        start batch N's extension (_extend: on the native route in a
+        worker thread). Batch N+1's seed program is enqueued by
+        dispatch_next, once, the moment batch N's last dependent device
+        work is queued: from the seed collect's hook after the redo
+        programs (an index with a dense SA), after the SA probe walks
+        (without one), or at the latest once the collect and SA are
+        done, before the extension starts (so the JAX package's
+        extension hook, on_started, could never come first: the port
+        has none). Not after a failed collect: the device may hang, and
+        a dispatch would queue behind it. The seed program uploads its
+        reads without waiting and queues on its own stream, so on a card
+        it returns at once, and the card seeds batch N+1 through batch
+        N's collect tail, extension and tail window. Adaptive downgrade,
+        as in the JAX package: once the seed span (collect + SA) of two
+        batches in a row exceeds 3x the best, the early hooks are off
+        and the next batch is enqueued after the fetches. An error
+        inside dispatch_next (on any thread) is kept and raised on the
+        main thread at that batch's seeds collect. Calls emit(batch) in
+        order with .sam filled; returns reads processed. On an error, an
+        extension in flight is abandoned (its device waits give up at
+        once) and waited for, since its harvesters hold the driver; then
+        the error is raised."""
         from ..utils.trace import GLOBAL as tracer
+        ba = self.ba
         n_processed = 0
         pending = None  # join() of the previous batch's tail
         prev = None     # batch N-1: its extension's join
         it = iter(batches)
         cur = next(it, None)
-        cur_h = None
+        cur_box: dict = {}
         if cur is not None:
             with tracer.span("seed"):
-                cur_h = self.ba.seeds_dispatch([r.seq for r in cur])
+                cur_box["h"] = ba.seeds_dispatch([r.seq for r in cur])
         try:
             while cur is not None:
                 seqs = [r.seq for r in cur]
                 nxt = next(it, None)
+                nxt_box: dict = {}
+                nxt_lock = threading.Lock()
+
+                def dispatch_next(hook, nxt=nxt, box=nxt_box,
+                                  lock=nxt_lock):
+                    # from the main thread or a shard's collect thread:
+                    # the lock makes it once only
+                    if nxt is None:
+                        return
+                    with lock:
+                        if box:
+                            return
+                        try:
+                            box["h"] = ba.seeds_dispatch(
+                                [r.seq for r in nxt])
+                            ba._stat(f"enqueue_{hook}")
+                        except BaseException as e:  # noqa: BLE001 - kept
+                            box["e"] = e            # for the main thread
+                if "e" in cur_box:
+                    raise cur_box["e"]
+                cur_h = cur_box["h"]
+                probe_path = ba.dfm.sa_dense is None
+                aggressive = self._slow_seed_streak < 2
+                if not aggressive:
+                    ba._stat("seed_downgrades")
+                if not probe_path and aggressive:
+                    cur_h["_post_redo_dispatch"] = functools.partial(
+                        dispatch_next, "post_redo")
+                t_seed = time.monotonic()
                 with tracer.span("seed"):
-                    intvs = self.ba.seeds_collect(cur_h)
+                    intvs = ba.seeds_collect(cur_h)
                 with tracer.span("sa"):
-                    sa_flat = self.ba.resolve_sa_flat(intvs, cur_h)
+                    sa_flat = ba.resolve_sa_flat(
+                        intvs, cur_h, post_dispatch=functools.partial(
+                            dispatch_next, "post_dispatch")
+                        if probe_path and aggressive else None)
+                self._seed_span(time.monotonic() - t_seed)
+                dispatch_next("late")   # none if a hook fired it
                 if prev is not None:
                     pending = self._finish_batch(prev, pending, emit)
                     prev = None
                 prev = dict(reads=cur, ext=self._extend(cur, intvs,
                                                         sa_flat))
-                nxt_h = None
-                if nxt is not None:
-                    with tracer.span("seed"):
-                        nxt_h = self.ba.seeds_dispatch([r.seq for r in nxt])
                 n_processed += len(cur)
-                cur, cur_h = nxt, nxt_h
+                cur, cur_box = nxt, nxt_box
             if prev is not None:
                 pending = self._finish_batch(prev, pending, emit)
                 prev = None
@@ -312,6 +370,18 @@ class AlignPipeline:
             with tracer.span("emit_wait"):
                 emit(pending())
         return n_processed
+
+    def _seed_span(self, dt: float) -> None:
+        """The adaptive downgrade's bookkeeping (JAX dataflow.py:423-429):
+        a batch's seed span sets a new best, or extends or ends the
+        streak of spans over 3x the best."""
+        if dt < self._best_seed_s:
+            self._best_seed_s = dt
+            self._slow_seed_streak = 0
+        elif dt > 3.0 * self._best_seed_s:
+            self._slow_seed_streak += 1
+        else:
+            self._slow_seed_streak = 0
 
     def _extend(self, batch, intvs, sa_flat):
         """Start a batch's chaining and extension; returns its join(). The

@@ -15,7 +15,8 @@ the regex markdup stage and the Python BAM encoder. Phases 3, 4, 8 and
 Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
      the torch/CUDA versions and the host's CPU count, and builds every
-     CUDA kernel of the main paths from bwa_flow_tpu_torch/csrc/ and
+     CUDA kernel of the main paths from bwa_flow_tpu_torch/csrc/ (both
+     ksw_extend2 kernels and the four seed kernels) and
      the six host libraries from csrc/host/ (_chain, _region, _wave,
      _native, _markdup, _bam; one nvcc or c++ per source, all started
      together, each timed); prints each kernel's registers, shared
@@ -52,7 +53,11 @@ Phases:
      subset on the card equals its --no-device SAM apart from @PG.
      Phases 3 and 4 record CUDA events around every kernel call and print
      each kernel's summed device time over its path, and the markdup
-     stage's class, duplicate count and seconds.
+     stage's class, duplicate count and seconds. Phases 3, 4 and 10 set
+     the seed kernels' launch counts to 0 before each run and fail
+     unless every seed kernel launched and no plain seed machine ran;
+     they print the seed program's seconds a batch and which hook
+     enqueued each next batch's seed program.
   5. each kernel at the mean wave size of the path that launched it
      (waves are trimmed to their filled slots): against its plain
      version, timed, with its bound; and the time a target row costs it
@@ -141,14 +146,38 @@ Phases:
      0: sa_intv 32 -> 4, the table every 4th entry of the full SA, then
      phase 9's reads with BWA_TPU_DENSE_SA_MAX=0 on the LF walk over it,
      records equal to phase 9's default run.
- 12. one JSON line describing the kernels (launches on the native
+ 12. the seed program's four kernels (seed_p1p3, seed_fwd, seed_bwd,
+     seed_cohort) against their plain versions on the card, after phase
+     4: collect_intv_device on phase 3's first 4096 reads and on 2048 of
+     phase 4's pairs (narrow int32), on the wide int64 machine, with the
+     big redo budgets (512 reads, MAXM 256) and with p2x = 4. Each
+     batch's whole program on the kernels must equal the same program on
+     the plain versions, and each kernel call of it must equal its plain
+     version on the same inputs, every output array, tolerance 0 (a
+     machine state's drop-sentinel slot is a write sink, not an
+     output). On the SE and PE batches each kernel (its launcher, on
+     inputs made beforehand, the stream held by a spin kernel while the
+     launches are queued) and each plain version is timed with CUDA
+     events, beside a bound: the larger of its HBM bytes (the index,
+     the reads or symbol table and each lane's inputs read once, the
+     lanes' state and the stores written once; a lane's repeated FM row
+     gathers hit the L2) over 3.35 TB/s and its int32 operations
+     (OPS_PER_PROBE a probe) over 16.7e12/s, the steps counted on the
+     plain run. Then a BatchAligner's seeds_dispatch of the SE batch
+     must upload its reads without a wait, make no fetch, wait or put,
+     and torch's sync debug mode must report no synchronising call in
+     the whole dispatch.
+ 13. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
      under "native_classes"; python_path_* at the pure-Python route's
      mean wave; *_b4096 at B=4096; launches on each path) and, under
      "host_libraries", the six host libraries with their build seconds
      and phase 11's times; the device line; and as the last line {"ok":
-     true, "device": {...}}.
+     true, "device": {...}}. The seed kernels' launches are those of the
+     native host-mode SE run (the CLI's default), their ms, plain_ms and
+     bound_ms phase 12's at the SE batch; the line also holds the seed
+     program's seconds a batch on each main path.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -831,13 +860,12 @@ def launch_times(log: dict, tag: str) -> dict:
 
 
 def build_everything(_build) -> dict:
-    """Build both CUDA kernels and the six host libraries, one thread
-    (one nvcc or c++) each, all at once; prints and returns each build's
-    seconds (0 when it was built already)."""
+    """Build every CUDA kernel (_build.KERNELS) and the six host
+    libraries, one thread (one nvcc or c++) each, all at once; prints and
+    returns each build's seconds (0 when it was built already)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    jobs = {"ksw_extend": lambda: _build.build_all(["ksw_extend"]),
-            "ksw_extend16": lambda: _build.build_all(["ksw_extend16"])}
+    jobs = {n: lambda n=n: _build.build_all([n]) for n in _build.KERNELS}
     for n in _build.HOST_LIBS:
         jobs[n] = lambda n=n: _build.build_host([n])
 
@@ -849,7 +877,7 @@ def build_everything(_build) -> dict:
     with ThreadPoolExecutor(len(jobs)) as ex:
         secs = dict(ex.map(timed, jobs.items()))
     for n, dt in secs.items():
-        src = f"csrc/{n}.cu" if n.startswith("ksw") else \
+        src = f"csrc/{n}.cu" if n in _build.KERNELS else \
             f"csrc/host/{n}.cpp"
         print(f"[build] {src}: {dt:.2f} s")
     print(f"[build] all {len(jobs)} in parallel: "
@@ -933,7 +961,7 @@ def phase_main_path(work: Path, device: str) -> dict:
     import torch
 
     from bwa_flow_tpu_torch import cli
-    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.ops import extend_cuda, smem_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
 
     from bwa_flow_tpu_torch.index import build
@@ -951,14 +979,18 @@ def phase_main_path(work: Path, device: str) -> dict:
     os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
     extend_cuda.n_launches = 0            # count only the main path run
     extend_cuda.n_launches16 = 0
+    smem_cuda.n_launches.update(dict.fromkeys(smem_cuda.KERNELS, 0))
     tracer.totals.clear()
     tracer.counts.clear()
     t0 = time.perf_counter()
-    with timed_launches() as log, markdup_stages() as mds:
+    with timed_launches() as log, markdup_stages() as mds, \
+            plain_seed_calls() as plain:
         assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
                          "--device", device, "-o", str(work / "full.sam"),
                          str(work / "ref.fa"), str(work / "reads.fq")]) == 0
     dt = time.perf_counter() - t0
+    seed_launches = dict(smem_cuda.n_launches)
+    seed_launch_check("main", seed_launches, plain)
     path = launch_times(log, "main")
     mdup = markdup_summary("main", mds, "MarkDupStage")
     launches = extend_cuda.n_launches
@@ -975,6 +1007,7 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"ksw_extend2 launches {launches}; peak device memory "
           f"{peak / 2**20:.1f} MiB")
     print(f"[main] spans (host wall clock, s): {tracer.as_json()}")
+    print(f"[main] {enqueue_summary(st)}")
     spans = dict(tracer.totals)
 
     recs = _records(work / "full.sam")
@@ -1014,6 +1047,7 @@ def phase_main_path(work: Path, device: str) -> dict:
     print(f"[main] {N_SUB}-read subset: device SAM == --no-device SAM "
           f"({len(dev_sam)} lines)")
     return dict(launches=launches, reads_per_s=N_READS / dt,
+                seed_launches=seed_launches,
                 seed_s_per_batch=seed_per_batch, stats=st, peak=peak,
                 path=path["ksw_extend2"], wall_s=dt, spans=spans,
                 index_s=t_index, index_sa_s=t_sa["s"],
@@ -1027,7 +1061,7 @@ def phase_pe_path(work: Path, device: str) -> dict:
     import torch
 
     from bwa_flow_tpu_torch import cli
-    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.ops import extend_cuda, smem_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
 
     ref = str(work / "ref.fa")
@@ -1037,15 +1071,19 @@ def phase_pe_path(work: Path, device: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
         extend_cuda.n_launches = 0        # count only the PE path run
         extend_cuda.n_launches16 = 0
+        smem_cuda.n_launches.update(dict.fromkeys(smem_cuda.KERNELS, 0))
         tracer.totals.clear()
         tracer.counts.clear()
         t0 = time.perf_counter()
-        with timed_launches() as log, markdup_stages() as mds:
+        with timed_launches() as log, markdup_stages() as mds, \
+                plain_seed_calls() as plain:
             assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
                              "--device", device, "-o", str(work / "pe.sam"),
                              ref, str(work / "r1.fq"),
                              str(work / "r2.fq")]) == 0
         dt = time.perf_counter() - t0
+        seed_launches = dict(smem_cuda.n_launches)
+        seed_launch_check("pe", seed_launches, plain)
         path = launch_times(log, "pe")
         mdup = markdup_summary("pe", mds, "MarkDupStage")
         launches = extend_cuda.n_launches
@@ -1063,6 +1101,7 @@ def phase_pe_path(work: Path, device: str) -> dict:
               f"launches {launches}; peak device memory "
               f"{peak / 2**20:.1f} MiB")
         print(f"[pe] spans (host wall clock, s): {tracer.as_json()}")
+        print(f"[pe] {enqueue_summary(st)}")
 
         recs = _records(work / "pe.sam")
         primary: dict = {}
@@ -1106,6 +1145,8 @@ def phase_pe_path(work: Path, device: str) -> dict:
     print(f"[pe] {N_SUB}-pair subset: device SAM == --no-device SAM "
           f"({len(dev_sam)} lines)")
     return dict(launches=launches16, pairs_per_s=N_PAIRS / dt, stats=st,
+                seed_launches=seed_launches,
+                seed_s_per_batch=st["seed_s"] / max(1, st["seed_batches"]),
                 peak=peak, path=path["ksw_extend2_i16"], markdup=mdup)
 
 
@@ -1854,7 +1895,7 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     is then held against its plain version at the run's shapes
     (native_shapes), under "shapes"."""
     from bwa_flow_tpu_torch import cli
-    from bwa_flow_tpu_torch.ops import extend_cuda
+    from bwa_flow_tpu_torch.ops import extend_cuda, smem_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
 
     if extend16:
@@ -1862,11 +1903,13 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     else:
         os.environ.pop("BWA_TPU_EXTEND16", None)
     extend_cuda.n_launches = extend_cuda.n_launches16 = 0
+    smem_cuda.n_launches.update(dict.fromkeys(smem_cuda.KERNELS, 0))
     tracer.totals.clear()
     tracer.counts.clear()
     try:
         t0 = time.perf_counter()
-        with timed_launches(capture) as log, markdup_stages() as mds:
+        with timed_launches(capture) as log, markdup_stages() as mds, \
+                plain_seed_calls() as plain:
             if devices is None:
                 assert cli.main(["mem"] + argv) == 0
             else:
@@ -1876,6 +1919,8 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
         dt = time.perf_counter() - t0
     finally:
         os.environ.pop("BWA_TPU_EXTEND16", None)
+    seed_launches = dict(smem_cuda.n_launches)
+    seed_launch_check(f"p10 {tag}", seed_launches, plain)
     path = launch_times(log, f"p10 {tag}")
     mdup = markdup_summary(f"p10 {tag}", mds, "NativeMarkDupStage")
     st = dict(cli.last_run_stats)
@@ -1884,6 +1929,8 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     n = N_PAIRS if pairs else N_READS
     out = dict(wall_s=dt, rate=n / dt, launches=extend_cuda.n_launches,
                launches16=extend_cuda.n_launches16, stats=st, spans=spans,
+               seed_launches=seed_launches,
+               seed_s_per_batch=st["seed_s"] / max(1, st["seed_batches"]),
                device_ms={k: v["device_ms"] for k, v in path.items()},
                markdup=mdup)
     keys = ("waves", "ext_tasks_device", "ext_tasks_host", "host_oversize_q",
@@ -1894,6 +1941,8 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
           f"launches {out['launches']}, ksw_extend2_i16 "
           f"{out['launches16']}; device ms {out['device_ms']}")
     print(f"[p10] {tag} spans (host wall clock, s): {json.dumps(spans)}")
+    print(f"[p10] {tag}: seed {out['seed_s_per_batch']:.3f} s/batch over "
+          f"{st['seed_batches']} batches; {enqueue_summary(st)}")
     if capture:
         out["shapes"] = native_shapes(log)
     return out
@@ -2342,6 +2391,465 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
     return res
 
 
+# ----------------------------------------------------------- phase 12
+
+SEED_L = 160        # BatchAligner's smem_L: the seed machines' read length
+SEED_B = 4096       # reads of a main-path seed batch
+SEED_REPS = 5       # timed launches of each seed kernel
+# the seed kernels: name -> (wrapper in smem_torch, its plain version,
+# the JAX loop it replaces)
+SEED_KERNELS = {
+    "seed_p1p3": ("p1p3_machine", "_p1p3_machine",
+                  "bwa_flow_tpu/ops/smem_jax.py:400"),
+    "seed_fwd": ("fwd_scan_machine", "_fwd_scan_machine",
+                 "bwa_flow_tpu/ops/smem_jax.py:350"),
+    "seed_bwd": ("bwd_walk_machine", "_bwd_walk_machine",
+                 "bwa_flow_tpu/ops/smem_jax.py:505"),
+    "seed_cohort": ("cohort_emit", "_cohort_emit",
+                    "bwa_flow_tpu/ops/smem_jax.py:539"),
+}
+# a machine state's flat stores end in a drop-sentinel slot: a sink for
+# the plain version's dropped scatters, not an output
+SENTINEL_KEYS = ("brk_kls", "brk_meta", "mems")
+
+
+def _clone(x):
+    """A deep copy of a wrapper's arguments (tensors cloned on their
+    device; the index, ints and callables shared)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    return x
+
+
+def _outputs(out) -> list:
+    """Every output array of a seed wrapper's result in a fixed order: a
+    machine state by key, without its stores' sentinel slot."""
+    if isinstance(out, dict):
+        return [out[k][:-1] if k in SENTINEL_KEYS else out[k]
+                for k in sorted(out)]
+    if isinstance(out, (tuple, list)):
+        return [a for o in out for a in _outputs(o)]
+    return [out]
+
+
+@contextlib.contextmanager
+def captured_seed_calls():
+    """While the block runs, every call of a seed wrapper in smem_torch
+    is recorded with a copy of its arguments; yields name -> [args]. The
+    wrappers run unchanged inside."""
+    from bwa_flow_tpu_torch.ops import smem_torch
+    log = {name: [] for name in SEED_KERNELS}
+    saved = {}
+    for name, (wrapper, _, _) in SEED_KERNELS.items():
+        saved[wrapper] = fn = getattr(smem_torch, wrapper)
+
+        def rec(*a, _fn=fn, _log=log[name]):
+            _log.append(_clone(a))
+            return _fn(*a)
+        setattr(smem_torch, wrapper, rec)
+    try:
+        yield log
+    finally:
+        for wrapper, fn in saved.items():
+            setattr(smem_torch, wrapper, fn)
+
+
+@contextlib.contextmanager
+def plain_seed_calls():
+    """While the block runs, count the calls of the seed kernels' plain
+    versions (the main path on the card must make none); yields name ->
+    count."""
+    from bwa_flow_tpu_torch.ops import smem_torch
+    counts = dict.fromkeys(SEED_KERNELS, 0)
+    saved = {}
+    for name, (_, plain, _) in SEED_KERNELS.items():
+        saved[plain] = fn = getattr(smem_torch, plain)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            counts[_name] += 1
+            return _fn(*a, **k)
+        setattr(smem_torch, plain, counted)
+    try:
+        yield counts
+    finally:
+        for plain, fn in saved.items():
+            setattr(smem_torch, plain, fn)
+
+
+def seed_launch_check(tag: str, launches: dict, plain: dict) -> None:
+    """Raise unless every seed kernel launched in a main-path run and no
+    plain seed machine ran there."""
+    print(f"[{tag}] seed kernel launches {launches}; plain seed "
+          f"versions called {plain}")
+    if any(v <= 0 for v in launches.values()) or any(plain.values()):
+        raise SystemExit(f"{tag}: a seed kernel did not launch "
+                         f"({launches}), or a plain seed version ran "
+                         f"({plain})")
+
+
+def enqueue_summary(st: dict) -> str:
+    """How a run's next batches were enqueued (BatchAligner.stats): by
+    which hook of AlignPipeline.run, and how often the adaptive
+    downgrade took over."""
+    hooks = ", ".join(f"{h} {st[f'enqueue_{h}']}" for h in (
+        "post_redo", "post_dispatch", "late"))
+    return (f"next batch's seed program enqueued by: {hooks}; adaptive "
+            f"downgrade fired on {st['seed_downgrades']} batches")
+
+
+@contextlib.contextmanager
+def counted_steps():
+    """While the block runs, the plain seed machines count their lanes'
+    steps on the card: "sym", a live lane's symbol gather (pivot
+    acquisition and pass 1/3 steps), and "probe", a lane in mode 1 that
+    probes the index (two FM rows); yields the lists of 0-d counts."""
+    from bwa_flow_tpu_torch.ops import smem_torch
+    acc = {"sym": [], "probe": []}
+    saved = {}
+    for fname, key, mode_test in (
+            ("_fwd_pre2", "sym", lambda m: m != 3),
+            ("_p3_pre2", "sym", lambda m: m != 3),
+            ("_fwd_post", "probe", lambda m: m == 1),
+            ("_p3_post", "probe", lambda m: m == 1)):
+        saved[fname] = fn = getattr(smem_torch, fname)
+        argi = 3 if fname.endswith("pre2") else None
+
+        def counted(*a, _fn=fn, _key=key, _test=mode_test, _i=argi):
+            s = a[_i] if _i is not None else a[-3]
+            acc[_key].append(_test(s["mode"]).sum())
+            return _fn(*a)
+        setattr(smem_torch, fname, counted)
+    try:
+        yield acc
+    finally:
+        for fname, fn in saved.items():
+            setattr(smem_torch, fname, fn)
+
+
+# int32 operations of one index probe (two all-symbol occ rows and the
+# extension of one symbol, csrc/seed_fm.cuh), at the fewest Hopper
+# instructions: per row 16 (word, symbol) pairs of a three-input logic
+# op (xnor), a shift, a logic op (pair and mask), a popcount and an add
+# (5 each), 4 masks of 4 ops, 8 to clamp the row and split it; then 16
+# to derive the interval: 2 x (80 + 16 + 8) + 16
+OPS_PER_PROBE = 224
+# ... and of one slot of cohort emission: 3 loads' compares and
+# selects, a min and a store
+OPS_PER_SLOT = 8
+
+
+def _seed_bound(name: str, args: list, acc: dict, want) -> dict:
+    """The least time of a seed kernel's work on these inputs, counted
+    as _bound counts a kernel's: the larger of the bytes it must move
+    through HBM over HBM's rate (each input read once: the index's FM
+    rows, the symbol table or reads, each lane's inputs and state; each
+    output written once: each lane's state, the stores it writes) and
+    its operations over the int32 rate (OPS_PER_PROBE a probe,
+    OPS_PER_SLOT a cohort slot). A lane's repeated gathers of FM rows
+    are hits in the 50 MB L2 that holds the index, so they count in the
+    operations, not the bytes. Steps are counted on the plain run
+    (counted_steps) or, for the backward walk, from its results."""
+    nbytes, ops = _seed_work(name, args, acc, want)
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / INT32_OPS * 1e3
+    return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _seed_work(name: str, args: list, acc: dict, want) -> tuple:
+    """(HBM bytes, int32 operations) of a seed kernel's call
+    (_seed_bound)."""
+    import torch
+    tot = (lambda xs: int(torch.stack(xs).sum()) if xs else 0)
+    if name == "seed_cohort":
+        r = args[0]
+        return r.numel() * (4 + 4 + 1 + 4), r.numel() * OPS_PER_SLOT
+    index = (args[0].fm_blocks.numel() * 4
+             + args[0].L2.numel() * args[0].L2.element_size())
+    if name == "seed_bwd":
+        q_flat, read_id, bst0, i_b0, _mi, alive0 = args[2:8]
+        L = args[1]
+        t = bst0.element_size()
+        r = want[0].cpu().long()
+        ib0 = i_b0.cpu().long()
+        total = int(alive0.sum())
+        r, ib0 = r[:total], ib0[:total]
+        rid = read_id.cpu().long()[:total]
+        q = q_flat.cpu().long()
+        died_valid = (r >= 0) & (q[rid * L + r.clamp(0, L - 1)] < 4)
+        probes = int((ib0 - r).sum() + died_valid.sum())
+        M = i_b0.numel()
+        # per queue entry: read id, i_b0, bst0 and mi in; r and bst out
+        return (index + q_flat.numel() * 4 + M * (4 + 4 + 4 * t + 4 + 3 * t),
+                probes * OPS_PER_PROBE)
+    probes = tot(acc["probe"])
+    if name == "seed_fwd":
+        s0, q_flat = args[8], args[4]
+        nl = s0["mode"].numel()
+        # the reads, and per lane read id, qlen and mi
+        inputs = q_flat.numel() * 4 + nl * (4 + 4 + s0["ik"].element_size())
+    else:
+        s0 = args[6]
+        nl = s0["mode"].numel()
+        # the symbol table (2 int32 a lane and position), and per lane
+        # read id and the two qlens
+        inputs = 2 * nl * args[1] * 4 + nl * (4 + 4 + 4)
+    t = s0["ik"].element_size()
+    state = 2 * nl * (6 * 4 + 3 * t + 1)
+    nb = int(want[0]["nb"].sum()) if name == "seed_p1p3" else \
+        int(want["nb"].sum())
+    writes = nb * (3 * t + 3 * 4)
+    if name == "seed_p1p3":
+        s3 = args[12]
+        t3 = s3["ik"].element_size()
+        state += 2 * nl * (4 * 4 + 3 * t3 + 1)
+        writes += int(want[1][1].sum()) * 4 * t3
+    return index + inputs + state + writes, probes * OPS_PER_PROBE
+
+
+def _launcher(name: str, args: tuple, n: int):
+    """A call of the seed kernel's launcher (ops/smem_cuda.py) on inputs
+    that the wrapper's args give, prepared here as the wrapper prepares
+    them, so that a timing holds the kernel and the launcher's checks,
+    not the wrapper's copies and casts. The machines update their state
+    in place, so each of the n + 2 calls of _time_ms takes a fresh copy
+    of it, made here."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import smem_cuda as sc
+    from bwa_flow_tpu_torch.ops import smem_torch as st
+    i32 = torch.int32
+    if name == "seed_p1p3":
+        (dfm, L, NB, ITERS, read_id, qlen_l, st1, q2, qlen2, NP3, msl,
+         mmi, st3, _) = args
+        fixed = (dfm, L, NB, ITERS, NP3, msl, mmi, st._sym_tab(q2, qlen2, L),
+                 read_id.to(i32).contiguous(), qlen_l.to(i32).contiguous(),
+                 qlen2.to(i32).contiguous())
+        states = [(st._copies(st1), st._copies(st3)) for _ in range(n + 2)]
+        return lambda: sc.p1p3(*fixed, *states.pop())
+    if name == "seed_fwd":
+        dfm, L, NB, ITERS, q_flat, read_id, qlen_l, mi, st0, _ = args
+        fixed = (dfm, L, NB, ITERS, q_flat.contiguous(),
+                 read_id.to(i32).contiguous(), qlen_l.to(i32).contiguous(),
+                 mi.contiguous())
+        states = [st._copies(st0) for _ in range(n + 2)]
+        return lambda: sc.fwd_scan(*fixed, states.pop())
+    if name == "seed_bwd":
+        dfm, L, q_flat, read_id, bst0, i_b0, mi, alive0, CS, _ = args
+        M = i_b0.shape[0]
+        fixed = (dfm, L, st._bwd_budget(M, L, st._bwd_lanes(CS, M)),
+                 q_flat.contiguous(), read_id.to(i32).contiguous(),
+                 bst0.contiguous(), i_b0.to(i32).contiguous(),
+                 mi.contiguous(), alive0.to(i32).sum(dtype=i32))
+        return lambda: sc.bwd_walk(*fixed)
+    r, brk_g, valid, _ = args
+    fixed = (r.to(i32).contiguous(),
+             brk_g if brk_g.stride(1) == 1 else brk_g.contiguous(),
+             valid.contiguous())
+    return lambda: sc.cohort_emit(*fixed)
+
+
+def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
+                timed: bool) -> dict:
+    """collect_intv_device on one batch on the card: the whole program on
+    the kernels against the same program on the plain versions, then
+    each kernel call of the program against its plain version on the
+    same inputs (every output array, tolerance 0: all values are
+    integers); with timed, each kernel and plain version timed with CUDA
+    events and the kernel's bound. Returns name -> [per-call record]."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import smem_torch as st
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    params = st._opt_params(MemOpt())
+
+    def program():
+        return st.collect_intv_device(dfm, SEED_L, 64, MAXM, SEED_L * 16,
+                                      q, qlen, *params, **kw)
+    with captured_seed_calls() as log:
+        got = program()
+    torch.cuda.synchronize()
+    real = st._on_card
+    st._on_card = lambda t, who: False      # the plain versions, on the card
+    try:
+        want = program()
+    finally:
+        st._on_card = real
+    err, bad = _diff(got, want)
+    print(f"[p12] {tag}: B={q.shape[0]}, {q.dtype} reads, coordinates "
+          f"{dfm.L2.dtype}, {kw}: the seed program on the kernels vs on "
+          f"the plain versions: {len(got)} outputs, mismatching values "
+          f"{bad}, max |err| {err}")
+    if bad:
+        raise SystemExit(f"phase 12 {tag}: the seed program on the kernels "
+                         "differs from the plain versions")
+    res: dict = {}
+    for name, calls in log.items():
+        wrapper, plain, _ = SEED_KERNELS[name]
+        kern, ref = getattr(st, wrapper), getattr(st, plain)
+        for ci, args in enumerate(calls):
+            g = kern(*_clone(args))
+            with counted_steps() as acc:
+                w = ref(*_clone(args))
+            torch.cuda.synchronize()
+            gl, wl = _outputs(g), _outputs(w)
+            e, b = _diff(gl, wl)
+            if len(gl) != len(wl):
+                e, b = -1, 1
+            lanes = {"seed_p1p3": lambda: args[6]["mode"],
+                     "seed_fwd": lambda: args[8]["mode"],
+                     "seed_bwd": lambda: args[5],
+                     "seed_cohort": lambda: args[0]}[name]().shape[0]
+            rec = dict(call=ci, outputs=len(gl), max_abs_err=e,
+                       lanes=int(lanes))
+            if timed:
+                rec["ms"] = _time_ms(_launcher(name, args, SEED_REPS),
+                                     SEED_REPS, fill=True)
+                rec["plain_ms"] = _time_ms(lambda: ref(*_clone(args)), 1)
+                rec.update(_seed_bound(name, args, acc, w))
+            print(f"[p12] {tag} {name} call {ci}: {rec['lanes']} lanes, "
+                  f"{len(gl)} output arrays, mismatching values {b}, max "
+                  f"|err| {e}" + (
+                      f"; kernel {rec['ms']:.4f} ms a launch, plain "
+                      f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f}"
+                      f" ms ({rec['bound_by']}: {rec['bytes']} bytes over "
+                      f"3.35 TB/s, {rec['ops']} int32 ops over 16.7e12/s)"
+                      if timed else ""))
+            if b:
+                raise SystemExit(f"phase 12 {tag}: {name} call {ci} "
+                                 "differs from its plain version")
+            res.setdefault(name, []).append(rec)
+    return res
+
+
+def seeds_dispatch_reads(ba, seqs) -> dict:
+    """seeds_dispatch of one batch on the card, with every fetch, wait,
+    put and upload of the batch aligner recorded, the start of its seed
+    program (smem_torch.seed_dispatch) marked, and torch's sync debug
+    mode on ("warn") for the whole dispatch: returns the calls before
+    and after the program's start and the synchronising calls torch
+    reported. Collects the batch afterwards."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from bwa_flow_tpu_torch.ops import smem_torch
+
+    seen: list = []
+    methods = ("fetch", "wait", "put", "upload")
+    for m in methods:
+        real_m = getattr(ba, m)
+
+        def logged(*a, _m=m, _real=real_m, **k):
+            seen.append(_m)
+            return _real(*a, **k)
+        setattr(ba, m, logged)
+    real_dispatch = smem_torch.seed_dispatch
+
+    def marked(*a, **k):
+        seen.append("program")
+        return real_dispatch(*a, **k)
+    syncs: list = []
+
+    def show(message, category, filename, lineno, *rest):
+        # each synchronising call, with the program's frames that made it
+        # (not the mode's one-time prototype notice)
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f"{f.filename.split('/')[-1]}:{f.lineno}"
+                      for f in traceback.extract_stack()[:-1]
+                      if "bwa_flow_tpu_torch" in f.filename]
+            syncs.append(f"{filename}:{lineno} via {frames[-3:]}")
+    smem_torch.seed_dispatch = marked
+    shown = warnings.showwarning
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                h = ba.seeds_dispatch(seqs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                warnings.showwarning = shown
+    finally:
+        smem_torch.seed_dispatch = real_dispatch
+        for m in methods:
+            delattr(ba, m)
+    ba.seeds_collect(h)
+    i = seen.index("program") if "program" in seen else len(seen)
+    return dict(before=seen[:i], after=seen[i + 1:], syncs=syncs)
+
+
+def phase_seed_kernels(work: Path, device: str) -> dict:
+    """The four seed kernels against their plain versions on the card at
+    the main path's shapes, and the seed dispatch's device reads; returns
+    name -> numbers."""
+    import itertools
+
+    from bwa_flow_tpu_torch.index.io import load_index
+    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.ops import smem_torch
+    from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    fm = load_index(str(work / "ref.fa"))
+    ba = BatchAligner(MemOpt(), fm, smem_L=SEED_L, device=device)
+    se = [r.seq for r in itertools.islice(read_seqs(work / "reads.fq"),
+                                          SEED_B)]
+    pe = [r.seq for pair in itertools.islice(
+        zip(read_seqs(work / "r1.fq"), read_seqs(work / "r2.fq")),
+        SEED_B // 2) for r in pair]
+
+    def batch(reads):
+        q, qlen = smem_torch.pad_reads(reads, SEED_L)
+        return (ba.put(q, ba.device), ba.put(qlen, ba.device))
+    narrow, wide = ba.dfm.narrow(), ba.dfm
+    out: dict = {}
+    for tag, dfm, reads, MAXM, kw, timed in (
+            ("se", narrow, se, 128, dict(pack_H=32), True),
+            ("pe", narrow, pe, 128, dict(pack_H=32), True),
+            ("wide", wide, se, 128, {}, False),
+            ("big", narrow, se[:smem_torch.REDO_B], 256, dict(big=True),
+             False),
+            ("p2x4", narrow, se, 128, dict(pack_H=32, p2x=4), False)):
+        out[tag] = _seed_batch(tag, dfm, *batch(reads), MAXM, kw, timed)
+
+    reads = seeds_dispatch_reads(ba, se)
+    print(f"[p12] seeds_dispatch of {len(se)} reads on the dense-SA path: "
+          f"{reads['before']} before the seed program, {reads['after']} "
+          f"after it; synchronising calls in the dispatch "
+          f"{len(reads['syncs'])} {reads['syncs'][:3]}")
+    waits = [m for m in reads["before"] + reads["after"] if m != "upload"]
+    if waits or reads["syncs"] or "upload" not in reads["before"]:
+        raise SystemExit("phase 12: seeds_dispatch waited for the card or "
+                         "read it")
+    res = {}
+    for name in SEED_KERNELS:
+        calls = out["se"][name]
+        n = len(calls)
+        res[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for t in out.values()
+                            for c in t[name]),
+            ms=sum(c["ms"] for c in calls) / n,
+            plain_ms=sum(c["plain_ms"] for c in calls) / n,
+            bound_ms=sum(c["bound_ms"] for c in calls) / n,
+            bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"],
+            launches_a_batch=n, calls={t: v[name] for t, v in out.items()})
+        print(f"[p12] {name} at the SE batch (B={SEED_B}): {n} launches a "
+              f"batch, kernel {res[name]['ms']:.4f} ms a launch, plain "
+              f"{res[name]['plain_ms']:.3f} ms, bound "
+              f"{res[name]['bound_ms']:.5f} ms ({res[name]['bound_by']})")
+    res["dispatch_reads"] = reads
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2362,7 +2870,7 @@ def main() -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}; host "
           f"CPUs {os.cpu_count()}")
     build_s = build_everything(_build)
-    for name in ("ksw_extend", "ksw_extend16"):
+    for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("Compiling entry", "spill", "Used")):
                 print(f"[build] {name}.cu ptxas: {line.strip()}")
@@ -2389,6 +2897,8 @@ def main() -> int:
     with python_route():
         mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
         pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
+    seedres = timed_phase("12 seed kernels", phase_seed_kernels, WORK,
+                          "cuda")
     timed_phase("5 mean waves", phase_wave_shape, genome, cuda, kres,
                 {"ksw_extend2": mres["path"],
                  "ksw_extend2_i16": pres["path"]})
@@ -2468,6 +2978,31 @@ def main() -> int:
             "row_ns": k["row_ns"], "other_kernel_ms": k["path_other_ms"],
             "ms_b4096": k["ms"], "plain_ms_b4096": k["plain_ms"],
             "bound_ms_b4096": k["bound_ms"], "cells_b4096": k["cells"]})
+    # the seed kernels: launches on the native route's host-mode SE run
+    # (the CLI's default), ms, plain_ms and bound_ms at the SE batch
+    # (phase 12; a launch's mean over the batch's calls)
+    seed_paths = {"single_end": mres, "paired_end": pres,
+                  "native_se_host": nres["se_host"],
+                  "native_se_waves": nres["se_waves"],
+                  "native_pe_host": nres["pe_host"],
+                  "native_pe_waves": nres["pe_waves"],
+                  "native_shards": nres["shards"]}
+    for name, (_, plain, replaces) in SEED_KERNELS.items():
+        k = seedres[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"bwa_flow_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            "replaces_kernel": f"bwa_flow_tpu/ops/smem_jax.py::{plain}",
+            "checked": True,
+            "launches": nres["se_host"]["seed_launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "launches_a_batch": k["launches_a_batch"],
+            "launches_by_path": {t: r["seed_launches"][name]
+                                 for t, r in seed_paths.items()},
+            "calls": k["calls"]})
     kernels[0]["sort_path_device_ms"] = sres["path"]["device_ms"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     bres["max_abs_err"])
@@ -2488,7 +3023,11 @@ def main() -> int:
                   "checked": p11.get(n)}
                  for n in _build.HOST_LIBS]
     print(json.dumps({"kernels": kernels, "host_libraries": host_libs,
-                      "index_s": mres["index_s"]}))
+                      "index_s": mres["index_s"],
+                      "seed_s_per_batch": {
+                          t: r["seed_s_per_batch"]
+                          for t, r in seed_paths.items()},
+                      "seed_dispatch_reads": seedres["dispatch_reads"]}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -118,8 +118,10 @@ def test_se_shards_equal_one_device_and_jax(fx, se_sams, n_shards):
         assert sh["seed_s"] > 0
     assert sum(sh["waves"] for sh in stats["shards"]) == stats["waves"]
     # the shard threads open no spans: the main thread's seed span runs
-    # once a dispatch and once a collect, and sums no overlapping time
-    assert tracer.counts["seed"] == 4
+    # once for the first batch's dispatch and once a collect (the next
+    # batch's dispatch runs inside the collect, from its hook), and sums
+    # no overlapping time
+    assert tracer.counts["seed"] == 3
     assert sum(tracer.totals.values()) - tracer.totals["extend_waves"] \
         <= wall + 0.5
 
