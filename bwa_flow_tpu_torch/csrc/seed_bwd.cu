@@ -21,9 +21,15 @@
 // written, as the plain version's safety write does.
 //
 // What bounds it on the H100: the latency of a walk's chain of dependent
-// gathers (a read symbol and two 32-byte FM rows a step, the index in
-// L2). The pool is sorted longest walk first, so neighbouring threads
-// walk similar lengths and a warp's threads finish close together.
+// FM row gathers (the index in L2); the pools hold 10^5 entries and
+// more, so the card is full. The design takes everything else off the
+// chain: the one-symbol probe of seed_fm.cuh (the counts of one symbol
+// and of those above it, one row gather when both coordinates share a
+// block, no array indexed by a runtime value, so no stack), and the next
+// step's read symbol loaded beside this step's rows, so a step waits on
+// one gather, not on a symbol and then the rows. The pool is sorted
+// longest walk first, so neighbouring threads walk similar lengths and a
+// warp's threads finish close together.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -46,26 +52,31 @@ __global__ void __launch_bounds__(128)
                long long primary) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= M) return;
-  T ik[3] = {bst0[3 * e], bst0[3 * e + 1], bst0[3 * e + 2]};
+  T k = bst0[3 * e], l = bst0[3 * e + 1], s = bst0[3 * e + 2];
   int ib = i_b0[e];
   if (e < *total) {
     const FM<T> fm(blocks, L2, seq_len, primary);
-    const int row = read_id[e] * L;
+    const int32_t* qr = q + (long long)read_id[e] * L;
     const T m = mi[e];
+    int qb = __ldg(qr + clampi(ib, 0, L - 1));
     for (int step = 0; step < itb; ++step) {
-      const int qb = __ldg(q + row + clampi(ib, 0, L - 1));
       if (ib < 0 || qb >= 4) break;
-      T okc[3];
-      fm.extend(ik, true, clampi(qb, 0, 3), okc);
-      if (okc[2] < m) break;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ik[c] = okc[c];
+      // the next step's symbol, in flight beside this step's rows
+      const int qn = __ldg(qr + clampi(ib - 1, 0, L - 1));
+      T ok, ol, os;
+      fm.extend1(k, l, s, true, clampi(qb, 0, 3), ok, ol, os);
+      if (os < m) break;
+      k = ok;
+      l = ol;
+      s = os;
       --ib;
+      qb = qn;
     }
   }
   r[e] = ib;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) bst[3 * e + c] = ik[c];
+  bst[3 * e] = k;
+  bst[3 * e + 1] = l;
+  bst[3 * e + 2] = s;
 }
 
 template <typename T>

@@ -1,5 +1,5 @@
 // The seed program's pass 1 forward scan fused with pass 3 (LAST-like
-// seeding), one thread a lane, on NVIDIA Hopper (sm_90a).
+// seeding), four threads a lane, on NVIDIA Hopper (sm_90a).
 //
 // Replaces the XLA while_loop of bwa_flow_tpu/ops/smem_jax.py:400
 // (_p1p3_machine, :355-404). Same contract as the plain PyTorch version
@@ -11,7 +11,7 @@
 // drops below max_mem_intv after min_seed_len). The step functions are
 // _fwd_pre2/_fwd_post and _p3_pre2/_p3_post written out for one lane.
 //
-// Why one thread can run a lane to its end: a lane reads only its own
+// Why a lane can run to its end on its own: a lane reads only its own
 // state, its read's row of the symbol table and the index, and a lane in
 // mode 3 is a fixed point of the step. The plain version runs every lane
 // until all are in mode 3 or ITERS steps have passed; a lane that stops
@@ -21,13 +21,22 @@
 // The state arrays are updated in place (the wrapper passes copies).
 //
 // What bounds it on the H100: a lane's steps are a serial chain of
-// dependent gathers (a table symbol, then two 32-byte FM rows), so it is
-// bound by latency, not by bytes: the bytes it must move, two FM rows and
-// a symbol a step plus the break writes, take a few microseconds at 3.35
-// TB/s. The index (a 4.6 Mbp genome: ~4.6 MB of rows) sits in the 50 MB
-// L2, so a gather costs an L2 hit. Design: the state in registers, rows
-// through the read-only cache, 128 threads a block, the two passes in
-// separate blocks when B is a multiple of 128.
+// dependent FM row gathers, so it is bound by latency, not by bytes or
+// operations; the index (a 4.6 Mbp genome: ~4.6 MB of rows) sits in the
+// 50 MB L2, so a gather costs an L2 hit. The design keeps many lanes in
+// flight on every SM and puts nothing else on the chain:
+//   - a quad of threads runs one lane: the four hold the same state and
+//     take the same branches, and thread j counts word j of the probe's
+//     rows (seed_fm.cuh's one-symbol probe), two quad shuffles summing
+//     the counts; 2B lanes are 8B threads, and the wrapper picks blocks
+//     of 32, 16 or 8 lanes so that every SM gets a block
+//     (smem_cuda.p1p3_geometry);
+//   - the lane's row of the symbol table, both halves (symbols and packed
+//     pivots, int16: the pivot value (p << 6) | ... fits for L <= 511,
+//     which the wrapper checks), is staged in shared memory at lane start,
+//     so a step's only global gather is the FM row;
+//   - nothing is indexed by a runtime value, so nothing goes to the stack.
+// A warp holds 8 lanes, so it waits on its longest of 8, not of 32.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -38,6 +47,7 @@ namespace {
 
 using seedfm::clampi;
 using seedfm::FM;
+using seedfm::pick4;
 
 template <typename T>
 struct P1P3Args {
@@ -61,28 +71,57 @@ struct P1P3Args {
   uint8_t* ovf3;
 };
 
+// The four threads of one lane: their mask in the warp and each one's
+// word j of a probe row.
+struct Quad {
+  unsigned mask;
+  int j;
+
+  __device__ __forceinline__ unsigned sum(unsigned v) const {
+    v += __shfl_xor_sync(mask, v, 1, 4);
+    v += __shfl_xor_sync(mask, v, 2, 4);
+    return v;
+  }
+};
+
+template <typename X>
+__device__ __forceinline__ X pick3(int j, X a0, X a1, X a2) {
+  return j == 0 ? a0 : (j == 1 ? a1 : a2);
+}
+
 template <typename T>
 __device__ __forceinline__ T pack_info(int start, int end) {
   if (sizeof(T) == 4) return (T)((start << 16) | end);
   return (T)(((long long)start << 32) | (long long)end);
 }
 
+// The forward one-symbol probe of (k, l, s) and symbol c, by the quad.
 template <typename T>
-__device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
+__device__ __forceinline__ void probe(const FM<T>& fm, const Quad& q, T k,
+                                      T l, T s, int c, T& ok, T& ol,
+                                      T& os) {
+  seedfm::Part<T> p = fm.template part<1>(l, s, c, q.j);
+  p.n = q.sum(p.n);
+  fm.finish(p, k, l, s, false, c, ok, ol, os);
+}
+
+// sq, sp: the lane's staged symbols and pivot table (L each)
+template <typename T>
+__device__ __forceinline__ void pass1_lane(const P1P3Args<T>& a,
+                                           const FM<T>& fm, const Quad& q,
+                                           const int16_t* sq,
+                                           const int16_t* sp, int b) {
   const int L = a.L, NB = a.NB;
-  const int BL = a.B * L;
   int mode = a.mode1[b], x = a.x1[b], i = a.i1[b];
   int ik_info = a.info1[b], g = a.g1[b], nb = a.nb1[b];
   bool ovf = a.ovf1[b] != 0;
-  T ik[3] = {a.ik1[3 * b], a.ik1[3 * b + 1], a.ik1[3 * b + 2]};
-  const int row = a.read_id[b] * L;
+  T k = a.ik1[3 * b], l = a.ik1[3 * b + 1], s = a.ik1[3 * b + 2];
   const int qlen = a.qlen1[b];
   T* kls = a.brk_kls + (long long)b * 3 * NB;
   int32_t* meta = a.brk_meta + (long long)b * 3 * NB;
   for (int it = 0; it < a.iters && mode != 3; ++it) {
     const bool m0 = mode == 0;
-    const int val = __ldg(a.sym + row + (m0 ? clampi(x, 0, L - 1) + BL
-                                            : clampi(i, 0, L - 1)));
+    const int val = m0 ? sp[clampi(x, 0, L - 1)] : sq[clampi(i, 0, L - 1)];
     // _fwd_pre2: pivot acquisition
     const int cand = x < L ? (val >> 6) : L;
     const bool found = cand < L;
@@ -90,7 +129,7 @@ __device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
       mode = found ? 1 : 3;
       if (found) {
         x = cand;
-        fm.set_intv((val >> 3) & 7, ik);
+        fm.set_intv((val >> 3) & 7, k, l, s);
         ik_info = x + 1;
         i = x + 1;
         ++g;
@@ -99,11 +138,11 @@ __device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
     if (mode != 1) continue;
     const int q_i = val & 7;
     // _fwd_post after the shared probe
-    T okc[3];
-    fm.extend(ik, false, clampi(3 - q_i, 0, 3), okc);
+    T ok, ol, os;
+    probe(fm, q, k, l, s, clampi(3 - q_i, 0, 3), ok, ol, os);
     const bool end_now = i >= qlen || q_i > 3;
-    const bool changed = okc[2] != ik[2];
-    const bool die = changed && okc[2] < (T)1;
+    const bool changed = os != s;
+    const bool die = changed && os < (T)1;
     const bool push = end_now || changed;
     const bool to_next = end_now || die;
     bool nb_ovf = false;
@@ -111,17 +150,17 @@ __device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
       if (nb >= NB) {
         nb_ovf = true;
       } else {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) kls[c * NB + nb] = ik[c];
-        meta[nb] = ik_info;
-        meta[NB + nb] = x;
-        meta[2 * NB + nb] = g;
+        if (q.j < 3) {   // thread j stores row j
+          kls[q.j * NB + nb] = pick3(q.j, k, l, s);
+          meta[q.j * NB + nb] = pick3(q.j, ik_info, x, g);
+        }
         ++nb;
       }
     }
     if (!to_next) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ik[c] = okc[c];
+      k = ok;
+      l = ol;
+      s = os;
       ik_info = i + 1;
       i = i + 1;
     } else {
@@ -134,31 +173,32 @@ __device__ void pass1_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
       ovf = true;
     }
   }
-  a.mode1[b] = mode;
-  a.x1[b] = x;
-  a.i1[b] = i;
-  a.info1[b] = ik_info;
-  a.g1[b] = g;
-  a.nb1[b] = nb;
-  a.ovf1[b] = (ovf || mode != 3) ? 1 : 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) a.ik1[3 * b + c] = ik[c];
+  if (q.j == 0) {
+    a.mode1[b] = mode;
+    a.x1[b] = x;
+    a.i1[b] = i;
+    a.info1[b] = ik_info;
+    a.g1[b] = g;
+    a.nb1[b] = nb;
+    a.ovf1[b] = (ovf || mode != 3) ? 1 : 0;
+  }
+  if (q.j < 3) a.ik1[3 * b + q.j] = pick3(q.j, k, l, s);
 }
 
 template <typename T>
-__device__ void pass3_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
+__device__ __forceinline__ void pass3_lane(const P1P3Args<T>& a,
+                                           const FM<T>& fm, const Quad& q,
+                                           const int16_t* sq,
+                                           const int16_t* sp, int b) {
   const int L = a.L, NP3 = a.NP3;
-  const int BL = a.B * L;
   int mode = a.mode3[b], x = a.x3[b], i = a.i3[b], n = a.n_mem[b];
   bool ovf = a.ovf3[b] != 0;
-  T ik[3] = {a.ik3[3 * b], a.ik3[3 * b + 1], a.ik3[3 * b + 2]};
-  const int row = b * L;
+  T k = a.ik3[3 * b], l = a.ik3[3 * b + 1], s = a.ik3[3 * b + 2];
   const int qlen = a.qlen3[b];
   T* slots = a.mems + (long long)b * 4 * NP3;
   for (int it = 0; it < a.iters && mode != 3; ++it) {
     const bool m0 = mode == 0;
-    const int val = __ldg(a.sym + row + (m0 ? clampi(x, 0, L - 1) + BL
-                                            : clampi(i, 0, L - 1)));
+    const int val = m0 ? sp[clampi(x, 0, L - 1)] : sq[clampi(i, 0, L - 1)];
     // _p3_pre2
     const int cand = x < L ? (val >> 6) : L;
     const bool found = cand < L;
@@ -166,68 +206,100 @@ __device__ void pass3_lane(const P1P3Args<T>& a, const FM<T>& fm, int b) {
       mode = found ? 1 : 3;
       if (found) {
         x = cand;
-        fm.set_intv((val >> 3) & 7, ik);
+        fm.set_intv((val >> 3) & 7, k, l, s);
         i = x + 1;
       }
     }
     if (mode != 1) continue;
     const int q_i = val & 7;
     // _p3_post
-    T okc[3];
-    fm.extend(ik, false, clampi(3 - q_i, 0, 3), okc);
+    T ok, ol, os;
+    probe(fm, q, k, l, s, clampi(3 - q_i, 0, 3), ok, ol, os);
     const bool ended = i >= qlen;
     const bool amb = !ended && q_i > 3;
     const bool live = !ended && !amb;
-    const bool hit = live && (long long)okc[2] < a.max_mem_intv &&
+    const bool hit = live && (long long)os < a.max_mem_intv &&
                      (i - x) >= a.min_seed_len;
-    if (hit && okc[2] > 0) {
+    if (hit && os > 0) {
       if (n >= NP3) {
         ovf = true;
       } else {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) slots[c * NP3 + n] = okc[c];
-        slots[3 * NP3 + n] = pack_info<T>(x, i + 1);
+        // thread j stores row j
+        slots[q.j * NP3 + n] = pick4(q.j, ok, ol, os, pack_info<T>(x, i + 1));
         ++n;
       }
     }
     const int i_old = i;
     if (live && !hit) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) ik[c] = okc[c];
+      k = ok;
+      l = ol;
+      s = os;
       i = i + 1;
     }
     if (ended) x = qlen;
     else if (amb || hit) x = i_old + 1;
     if (ended || amb || hit) mode = 0;
   }
-  a.mode3[b] = mode;
-  a.x3[b] = x;
-  a.i3[b] = i;
-  a.n_mem[b] = n;
-  a.ovf3[b] = (ovf || mode != 3) ? 1 : 0;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) a.ik3[3 * b + c] = ik[c];
+  if (q.j == 0) {
+    a.mode3[b] = mode;
+    a.x3[b] = x;
+    a.i3[b] = i;
+    a.n_mem[b] = n;
+    a.ovf3[b] = (ovf || mode != 3) ? 1 : 0;
+  }
+  if (q.j < 3) a.ik3[3 * b + q.j] = pick3(q.j, k, l, s);
 }
 
+// Four threads a lane; dynamic shared memory: 2 * L + 2 int16 a lane.
 template <typename T>
 __global__ void __launch_bounds__(128)
     p1p3_kernel(P1P3Args<T> a, const void* blocks, const T* L2,
                 long long seq_len, long long primary) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= 2 * a.B) return;
+  extern __shared__ int16_t stage[];
+  const int lane = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 2);
+  if (lane >= 2 * a.B) return;   // a quad shares its lane, so all 4 leave
+  const Quad q{0xFu << (threadIdx.x & 28u), (int)(threadIdx.x & 3u)};
+  const int L = a.L;
+  const bool first = lane < a.B;
+  const int b = first ? lane : lane - a.B;
+  // stage the lane's read row of both halves of the symbol table
+  const long long row = (long long)(first ? a.read_id[b] : b) * L;
+  const int32_t* src_q = a.sym + row;
+  const int32_t* src_p = a.sym + (long long)a.B * L + row;
+  // a lane's 2L int16 and one word more, so the 8 lanes of a warp read
+  // different banks
+  int16_t* sq = stage + (threadIdx.x >> 2) * (2 * L + 2);
+  int16_t* sp = sq + L;
+#pragma unroll 8
+  for (int p = q.j; p < L; p += 4) {
+    sq[p] = (int16_t)__ldg(src_q + p);
+    sp[p] = (int16_t)__ldg(src_p + p);
+  }
+  __syncwarp(q.mask);
   const FM<T> fm(blocks, L2, seq_len, primary);
-  if (t < a.B) pass1_lane(a, fm, t);
-  else pass3_lane(a, fm, t - a.B);
+  if (first) pass1_lane(a, fm, q, sq, sp, b);
+  else pass3_lane(a, fm, q, sq, sp, b);
 }
 
 template <typename T>
-int launch(P1P3Args<T> a, const void* blocks, const void* L2,
+int launch(P1P3Args<T> a, int threads, const void* blocks, const void* L2,
            long long seq_len, long long primary, cudaStream_t stream) {
-  const int threads = 128;
-  const int n = 2 * a.B;
-  if (n > 0)
-    p1p3_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
-        a, blocks, (const T*)L2, seq_len, primary);
+  if (threads <= 0 || threads > 128 || threads % 32 != 0 || a.L <= 0 ||
+      a.L > 511)
+    return (int)cudaErrorInvalidValue;
+  const long long n = 8LL * a.B;   // 2B lanes, four threads each
+  if (n > 0) {
+    const size_t smem =
+        (size_t)(threads / 4) * (2 * a.L + 2) * sizeof(int16_t);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          p1p3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    p1p3_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, smem,
+                     stream>>>(a, blocks, (const T*)L2, seq_len, primary);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -254,9 +326,11 @@ P1P3Args<T> args(int B, int L, int NB, int NP3, int iters, int min_seed_len,
 }  // namespace
 
 // ptrs: the 21 device pointers of P1P3Args in its order (sym ... ovf3).
-// wide: coordinates int64 (else int32). Returns cudaGetLastError().
-extern "C" int seed_p1p3_launch(int wide, int B, int L, int NB, int NP3,
-                                int iters, int min_seed_len,
+// wide: coordinates int64 (else int32). threads: a block's threads, a
+// multiple of 32 up to 128 (four a lane). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a block size or L (1..511) it does not take.
+extern "C" int seed_p1p3_launch(int wide, int threads, int B, int L, int NB,
+                                int NP3, int iters, int min_seed_len,
                                 long long max_mem_intv, void* const* ptrs,
                                 const void* fm_blocks, const void* L2,
                                 long long seq_len, long long primary,
@@ -265,10 +339,10 @@ extern "C" int seed_p1p3_launch(int wide, int B, int L, int NB, int NP3,
   if (wide)
     return launch(args<int64_t>(B, L, NB, NP3, iters, min_seed_len,
                                 max_mem_intv, ptrs),
-                  fm_blocks, L2, seq_len, primary, s);
+                  threads, fm_blocks, L2, seq_len, primary, s);
   return launch(args<int32_t>(B, L, NB, NP3, iters, min_seed_len,
                               max_mem_intv, ptrs),
-                fm_blocks, L2, seq_len, primary, s);
+                threads, fm_blocks, L2, seq_len, primary, s);
 }
 
 extern "C" const char* seed_error_string(int code) {

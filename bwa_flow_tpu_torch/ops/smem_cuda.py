@@ -13,13 +13,15 @@ ops/smem_torch.py computes:
   - ``seed_cohort`` (csrc/seed_cohort.cu): cohort emission, the
     fori_loop at smem_jax.py:539 (_cohort_emit).
 
-The three machines run one thread a lane to the lane's end on the card,
-with the FM primitives of csrc/seed_fm.cuh, so a machine is one launch
-and its caller reads nothing from the card. What bounds them is the
-latency of a lane's serial chain of dependent gathers (a symbol, then
-two 32-byte FM rows a step), not bytes: the index of a bacterial genome
-sits in the 50 MB L2 (PERF.md). The dispatching wrappers (CPU tensors:
-the plain version; CUDA tensors: these launchers) are in smem_torch.py.
+The machines run each lane to its end on the card, with the FM
+primitives of csrc/seed_fm.cuh, so a machine is one launch and its
+caller reads nothing from the card: ``seed_p1p3`` with four threads a
+lane (the lane's symbol-table row staged in shared memory, blocks from
+``p1p3_geometry``), ``seed_fwd`` and ``seed_bwd`` with one thread a lane.
+What bounds them is the latency of a lane's serial chain of dependent FM
+row gathers, not bytes: the index of a bacterial genome sits in the 50
+MB L2 (PERF.md). The dispatching wrappers (CPU tensors: the plain
+version; CUDA tensors: these launchers) are in smem_torch.py.
 
 Each launcher checks its tensors, launches on the tensor's card and its
 current stream inside the card's device guard, raises when
@@ -45,13 +47,17 @@ _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # the C launchers' arguments (csrc/<name>.cu)
 _ARGTYPES = {
-    "seed_p1p3": [_I] * 7 + [_LL, _PP, _P, _P, _LL, _LL, _P],
+    "seed_p1p3": [_I] * 8 + [_LL, _PP, _P, _P, _LL, _LL, _P],
     "seed_fwd": [_I] * 5 + [_PP, _P, _P, _LL, _LL, _P],
     "seed_bwd": [_I] * 4 + [_PP, _P, _P, _LL, _LL, _P],
     "seed_cohort": [_I, _I, _P, _P, _I, _P, _P, _P],
 }
 _FNS: dict = {}
 _LOCK = threading.Lock()
+# seed_p1p3 stages a lane's symbol-table row as int16: the packed pivot
+# (p << 6) | (q[p] << 3) | q[p + 1], p <= L, fits for L <= 511
+P1P3_MAX_L = 511
+_SMS: dict = {}
 
 
 def _fn(name: str):
@@ -123,14 +129,35 @@ def _ptrs(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
+def p1p3_geometry(lanes: int, sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) of a seed_p1p3 launch over `lanes` lanes,
+    four threads a lane: the widest block of 32, 16 or 8 lanes that still
+    gives each of the card's `sms` SMs a block, else 8 lanes a block."""
+    for per in (32, 16):
+        if -(-lanes // per) >= sms:
+            return 4 * per, -(-lanes // per)
+    return 32, -(-lanes // 8)
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def p1p3(dfm, L: int, NB: int, ITERS: int, NP3: int, min_seed_len: int,
          max_mem_intv: int, sym, read_id, qlen1, qlen3, s1: dict,
          s3: dict) -> None:
     """Run pass 1 (state s1, _fresh's keys) and pass 3 (state s3: mode, x,
     i, ik, mems, n_mem, ovf) to their ends on the card, updating both in
     place; ovf ends as the plain version's ovf | (mode != 3). sym is
-    _sym_tab's int32[2 * B * L] table."""
+    _sym_tab's int32[2 * B * L] table; L is at most P1P3_MAX_L."""
     dev = _device("seed_p1p3", sym)
+    if not 0 < L <= P1P3_MAX_L:
+        raise ValueError(f"seed_p1p3: L = {L}; the kernel stages a read's "
+                         f"symbol-table row as int16, which holds L <= "
+                         f"{P1P3_MAX_L}")
     B = s1["mode"].shape[0]
     dt = s1["ik"].dtype
     fm = _fm_args(dfm, dev, dt)
@@ -151,7 +178,9 @@ def p1p3(dfm, L: int, NB: int, ITERS: int, NP3: int, min_seed_len: int,
            _check("s3.mems", s3["mems"], dt, B * 4 * NP3 + 1, dev),
            _check("s3.n_mem", s3["n_mem"], i32, B, dev),
            _check("s3.ovf", s3["ovf"], u8, B, dev)]
-    _launch("seed_p1p3", dev, fm[4], B, L, NB, NP3, ITERS,
+    _fn("seed_p1p3")      # the kernel first (built at first use), then
+    threads, _ = p1p3_geometry(2 * B, _sm_count(dev))   # the card's SMs
+    _launch("seed_p1p3", dev, fm[4], threads, B, L, NB, NP3, ITERS,
             int(min_seed_len), int(max_mem_intv), _ptrs(ts), *fm[:4])
 
 

@@ -20,7 +20,8 @@ Phases:
      the six host libraries from csrc/host/ (_chain, _region, _wave,
      _native, _markdup, _bam; one nvcc or c++ per source, all started
      together, each timed); prints each kernel's registers, shared
-     memory and spills as ptxas reports them.
+     memory, stack frame and spills as ptxas reports them, and fails if
+     a kernel of seed_p1p3 or seed_bwd (REDESIGNED) has a stack frame.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
@@ -163,10 +164,15 @@ Phases:
      lanes' state and the stores written once; a lane's repeated FM row
      gathers hit the L2) over 3.35 TB/s and its int32 operations
      (OPS_PER_PROBE a probe) over 16.7e12/s, the steps counted on the
-     plain run. Then a BatchAligner's seeds_dispatch of the SE batch
-     must upload its reads without a wait, make no fetch, wait or put,
-     and torch's sync debug mode must report no synchronising call in
-     the whole dispatch.
+     plain run. Beside the bound, each timed call of seed_p1p3,
+     seed_fwd and seed_bwd gets a chain floor: its longest lane's probes
+     (counted per lane on the plain run, or for the backward walk from
+     its results) times the card's dependent L2-hit latency, which the
+     phase measures first (CHASE_CU: one thread's pointer chase over
+     random 32-byte sectors of a buffer the index's size, warm). Then a
+     BatchAligner's seeds_dispatch of the SE batch must upload its reads
+     without a wait, make no fetch, wait or put, and torch's sync debug
+     mode must report no synchronising call in the whole dispatch.
  13. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
@@ -176,8 +182,11 @@ Phases:
      and phase 11's times; the device line; and as the last line {"ok":
      true, "device": {...}}. The seed kernels' launches are those of the
      native host-mode SE run (the CLI's default), their ms, plain_ms and
-     bound_ms phase 12's at the SE batch; the line also holds the seed
-     program's seconds a batch on each main path.
+     bound_ms phase 12's at the SE batch, with its chain floor, the
+     latency under it, each kernel's ptxas report and, for seed_p1p3
+     and seed_bwd, what their redesign for Hopper changed
+     ("redesigned"); the line also holds the seed program's seconds a
+     batch on each main path.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -857,6 +866,42 @@ def launch_times(log: dict, tag: str) -> dict:
               f"{total:.3f} ms in all, {total / len(events):.4f} ms a "
               f"launch (CUDA events around each wrapper call)")
     return out
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel entry of an nvcc -Xptxas -v log, by its name and
+    template arguments as mangled (p1p3_kernelIiE: int32 coordinates,
+    IlE: int64): registers and the stack frame, spill stores and spill
+    loads in bytes."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    named = {}
+    for k, v in out.items():
+        # a mangled name is <length><name>: the name ending in _kernel
+        for m in re.finditer(r"\d+", k):
+            digits, end = m.group(0), m.end()
+            names = [k[end:end + int(digits[i:])]
+                     for i in range(len(digits))]
+            name = next((n for n in names if n.endswith("_kernel")), None)
+            if name:
+                tmpl = re.match(r"I\w+?E", k[end + len(name):])
+                named[name + (tmpl.group(0) if tmpl else "")] = v
+                break
+    return named
 
 
 def build_everything(_build) -> dict:
@@ -2408,6 +2453,14 @@ SEED_KERNELS = {
     "seed_cohort": ("cohort_emit", "_cohort_emit",
                     "bwa_flow_tpu/ops/smem_jax.py:539"),
 }
+# the seed kernels redesigned for Hopper beyond one thread a lane: what
+# the design changed
+REDESIGNED = {
+    "seed_p1p3": "four threads a lane, the lane's symbols staged in shared "
+                 "memory, the one-symbol FM probe, blocks over every SM",
+    "seed_bwd": "the one-symbol FM probe, the next read symbol loaded "
+                "beside the rows",
+}
 # a machine state's flat stores end in a drop-sentinel slot: a sink for
 # the plain version's dropped scatters, not an output
 SENTINEL_KEYS = ("brk_kls", "brk_meta", "mems")
@@ -2507,9 +2560,13 @@ def counted_steps():
     """While the block runs, the plain seed machines count their lanes'
     steps on the card: "sym", a live lane's symbol gather (pivot
     acquisition and pass 1/3 steps), and "probe", a lane in mode 1 that
-    probes the index (two FM rows); yields the lists of 0-d counts."""
+    probes the index (two FM rows); yields the lists of 0-d counts, and
+    under "lanes" each step function's probes a lane (int32[lanes],
+    summed over the steps)."""
+    import torch
+
     from bwa_flow_tpu_torch.ops import smem_torch
-    acc = {"sym": [], "probe": []}
+    acc = {"sym": [], "probe": [], "lanes": {}}
     saved = {}
     for fname, key, mode_test in (
             ("_fwd_pre2", "sym", lambda m: m != 3),
@@ -2519,9 +2576,14 @@ def counted_steps():
         saved[fname] = fn = getattr(smem_torch, fname)
         argi = 3 if fname.endswith("pre2") else None
 
-        def counted(*a, _fn=fn, _key=key, _test=mode_test, _i=argi):
+        def counted(*a, _fn=fn, _key=key, _test=mode_test, _i=argi,
+                    _name=fname):
             s = a[_i] if _i is not None else a[-3]
-            acc[_key].append(_test(s["mode"]).sum())
+            hit = _test(s["mode"])
+            acc[_key].append(hit.sum())
+            if _key == "probe":
+                lanes = acc["lanes"]
+                lanes[_name] = lanes.get(_name, 0) + hit.to(torch.int32)
             return _fn(*a)
         setattr(smem_torch, fname, counted)
     try:
@@ -2531,13 +2593,18 @@ def counted_steps():
             setattr(smem_torch, fname, fn)
 
 
-# int32 operations of one index probe (two all-symbol occ rows and the
-# extension of one symbol, csrc/seed_fm.cuh), at the fewest Hopper
-# instructions: per row 16 (word, symbol) pairs of a three-input logic
-# op (xnor), a shift, a logic op (pair and mask), a popcount and an add
-# (5 each), 4 masks of 4 ops, 8 to clamp the row and split it; then 16
-# to derive the interval: 2 x (80 + 16 + 8) + 16
-OPS_PER_PROBE = 224
+# int32 operations of one index probe: the row of one symbol c of
+# bwt_extend, which is all the seed machines take from a probe (the
+# one-symbol probe of csrc/seed_fm.cuh), at the fewest Hopper
+# instructions. Per probe row, for each of its 4 words: the count of c
+# (a three-input logic op (xnor with c's pattern), a shift, a logic op
+# (pair, mask and keep), a popcount and an add: 5) and the count of the
+# symbols above c (a shift, a logic op picking the pairs above c, a
+# logic op with the keep mask, a popcount and an add: 5); 4 keep masks
+# of 2 ops (a max and a clamping funnel shift); 8 to clamp the
+# coordinate and split it into row and offset. Then 16 to pick c's
+# counts and L2 entry and derive the interval: 2 x (40 + 8 + 8) + 16.
+OPS_PER_PROBE = 128
 # ... and of one slot of cohort emission: 3 loads' compares and
 # selects, a min and a store
 OPS_PER_SLOT = 8
@@ -2553,22 +2620,25 @@ def _seed_bound(name: str, args: list, acc: dict, want) -> dict:
     OPS_PER_SLOT a cohort slot). A lane's repeated gathers of FM rows
     are hits in the 50 MB L2 that holds the index, so they count in the
     operations, not the bytes. Steps are counted on the plain run
-    (counted_steps) or, for the backward walk, from its results."""
-    nbytes, ops = _seed_work(name, args, acc, want)
+    (counted_steps) or, for the backward walk, from its results; the
+    longest lane's probes (None for cohort emission) are returned
+    beside the bound, for the chain floor."""
+    nbytes, ops, longest = _seed_work(name, args, acc, want)
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / INT32_OPS * 1e3
     return dict(bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                longest_lane_probes=longest)
 
 
 def _seed_work(name: str, args: list, acc: dict, want) -> tuple:
-    """(HBM bytes, int32 operations) of a seed kernel's call
-    (_seed_bound)."""
+    """(HBM bytes, int32 operations, the longest lane's probes) of a seed
+    kernel's call (_seed_bound)."""
     import torch
     tot = (lambda xs: int(torch.stack(xs).sum()) if xs else 0)
     if name == "seed_cohort":
         r = args[0]
-        return r.numel() * (4 + 4 + 1 + 4), r.numel() * OPS_PER_SLOT
+        return r.numel() * (4 + 4 + 1 + 4), r.numel() * OPS_PER_SLOT, None
     index = (args[0].fm_blocks.numel() * 4
              + args[0].L2.numel() * args[0].L2.element_size())
     if name == "seed_bwd":
@@ -2582,12 +2652,15 @@ def _seed_work(name: str, args: list, acc: dict, want) -> tuple:
         rid = read_id.cpu().long()[:total]
         q = q_flat.cpu().long()
         died_valid = (r >= 0) & (q[rid * L + r.clamp(0, L - 1)] < 4)
-        probes = int((ib0 - r).sum() + died_valid.sum())
+        lane = ib0 - r + died_valid.long()
         M = i_b0.numel()
         # per queue entry: read id, i_b0, bst0 and mi in; r and bst out
         return (index + q_flat.numel() * 4 + M * (4 + 4 + 4 * t + 4 + 3 * t),
-                probes * OPS_PER_PROBE)
+                int(lane.sum()) * OPS_PER_PROBE,
+                int(lane.max()) if total else 0)
     probes = tot(acc["probe"])
+    longest = max((int(v.max()) for v in acc["lanes"].values()
+                   if isinstance(v, torch.Tensor) and v.numel()), default=0)
     if name == "seed_fwd":
         s0, q_flat = args[8], args[4]
         nl = s0["mode"].numel()
@@ -2609,7 +2682,78 @@ def _seed_work(name: str, args: list, acc: dict, want) -> tuple:
         t3 = s3["ik"].element_size()
         state += 2 * nl * (4 * 4 + 3 * t3 + 1)
         writes += int(want[1][1].sum()) * 4 * t3
-    return index + inputs + state + writes, probes * OPS_PER_PROBE
+    return (index + inputs + state + writes, probes * OPS_PER_PROBE,
+            longest)
+
+
+# a single thread's chain of dependent loads through the read-only cache
+# over a random cyclic permutation of 32-byte sectors (one FM row each):
+# the card's latency of a dependent L2 hit, the wall a seed lane's chain
+# of FM row gathers stands against
+CHASE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const unsigned* __restrict__ next, long long hops,
+                      unsigned* out) {
+  unsigned p = 0;
+  for (long long h = 0; h < hops; ++h) p = __ldg(next + p);
+  *out = p;
+}
+extern "C" int chase_launch(const void* next, long long hops, void* out,
+                            void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const unsigned*)next, hops,
+                                           (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+"""
+CHASE_HOPS = 200_000
+CHASE_SEED = 0xC4A5E
+
+
+def l2_latency_ns(nbytes: int, device) -> dict:
+    """ns a dependent load over a buffer of nbytes (the index's size),
+    warm in L2: CHASE_CU built with the kernels' nvcc flags, one pass
+    over every sector first, then CHASE_HOPS hops timed with CUDA
+    events."""
+    import ctypes
+
+    import torch
+
+    from bwa_flow_tpu_torch import _build
+    src, lib = WORK / "chase.cu", WORK / "libchase.so"
+    src.write_text(CHASE_CU)
+    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                        str(src)], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise SystemExit(f"nvcc failed for the pointer chase:\n{r.stdout}"
+                         f"{r.stderr}")
+    fn = ctypes.CDLL(str(lib)).chase_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = max(2, nbytes // 32)
+    order = np.random.default_rng(CHASE_SEED).permutation(n)
+    nxt = np.zeros(n * 8, np.int32)
+    nxt[order * 8] = np.roll(order, -1) * 8
+    buf = torch.from_numpy(nxt).to(device)
+    out = torch.empty(1, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run(hops):
+        if fn(buf.data_ptr(), hops, out.data_ptr(), stream) != 0:
+            raise SystemExit("the pointer chase did not launch")
+    run(n)                                   # every sector into L2
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    run(CHASE_HOPS)
+    b.record()
+    torch.cuda.synchronize()
+    ns = a.elapsed_time(b) * 1e6 / CHASE_HOPS
+    print(f"[p12] dependent L2-hit latency: {ns:.1f} ns a load ({CHASE_HOPS}"
+          f" hops of one thread over {n} random 32-byte sectors, "
+          f"{n * 32} bytes, warm)")
+    return dict(ns=ns, bytes=n * 32, hops=CHASE_HOPS)
 
 
 def _launcher(name: str, args: tuple, n: int):
@@ -2655,13 +2799,15 @@ def _launcher(name: str, args: tuple, n: int):
 
 
 def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
-                timed: bool) -> dict:
+                timed: bool, lat_ns: float | None = None) -> dict:
     """collect_intv_device on one batch on the card: the whole program on
     the kernels against the same program on the plain versions, then
     each kernel call of the program against its plain version on the
     same inputs (every output array, tolerance 0: all values are
     integers); with timed, each kernel and plain version timed with CUDA
-    events and the kernel's bound. Returns name -> [per-call record]."""
+    events, the kernel's bound and, given the dependent L2-hit latency
+    lat_ns, its chain floor: the longest lane's probes times lat_ns.
+    Returns name -> [per-call record]."""
     import torch
 
     from bwa_flow_tpu_torch.ops import smem_torch as st
@@ -2713,6 +2859,10 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
                                      SEED_REPS, fill=True)
                 rec["plain_ms"] = _time_ms(lambda: ref(*_clone(args)), 1)
                 rec.update(_seed_bound(name, args, acc, w))
+                n_chain = rec["longest_lane_probes"]
+                rec["chain_floor_ms"] = (
+                    None if lat_ns is None or n_chain is None
+                    else n_chain * lat_ns * 1e-6)
             print(f"[p12] {tag} {name} call {ci}: {rec['lanes']} lanes, "
                   f"{len(gl)} output arrays, mismatching values {b}, max "
                   f"|err| {e}" + (
@@ -2720,6 +2870,8 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
                       f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f}"
                       f" ms ({rec['bound_by']}: {rec['bytes']} bytes over "
                       f"3.35 TB/s, {rec['ops']} int32 ops over 16.7e12/s)"
+                      f"; longest lane {rec['longest_lane_probes']} probes, "
+                      f"chain floor {rec['chain_floor_ms']} ms"
                       if timed else ""))
             if b:
                 raise SystemExit(f"phase 12 {tag}: {name} call {ci} "
@@ -2811,6 +2963,7 @@ def phase_seed_kernels(work: Path, device: str) -> dict:
         q, qlen = smem_torch.pad_reads(reads, SEED_L)
         return (ba.put(q, ba.device), ba.put(qlen, ba.device))
     narrow, wide = ba.dfm.narrow(), ba.dfm
+    lat = l2_latency_ns(wide.fm_blocks.numel() * 4, wide.fm_blocks.device)
     out: dict = {}
     for tag, dfm, reads, MAXM, kw, timed in (
             ("se", narrow, se, 128, dict(pack_H=32), True),
@@ -2819,7 +2972,8 @@ def phase_seed_kernels(work: Path, device: str) -> dict:
             ("big", narrow, se[:smem_torch.REDO_B], 256, dict(big=True),
              False),
             ("p2x4", narrow, se, 128, dict(pack_H=32, p2x=4), False)):
-        out[tag] = _seed_batch(tag, dfm, *batch(reads), MAXM, kw, timed)
+        out[tag] = _seed_batch(tag, dfm, *batch(reads), MAXM, kw, timed,
+                               lat["ns"])
 
     reads = seeds_dispatch_reads(ba, se)
     print(f"[p12] seeds_dispatch of {len(se)} reads on the dense-SA path: "
@@ -2841,12 +2995,17 @@ def phase_seed_kernels(work: Path, device: str) -> dict:
             plain_ms=sum(c["plain_ms"] for c in calls) / n,
             bound_ms=sum(c["bound_ms"] for c in calls) / n,
             bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"],
+            chain_floor_ms=(None if calls[0]["chain_floor_ms"] is None else
+                            sum(c["chain_floor_ms"] for c in calls) / n),
+            longest_lane_probes=[c["longest_lane_probes"] for c in calls],
             launches_a_batch=n, calls={t: v[name] for t, v in out.items()})
         print(f"[p12] {name} at the SE batch (B={SEED_B}): {n} launches a "
               f"batch, kernel {res[name]['ms']:.4f} ms a launch, plain "
               f"{res[name]['plain_ms']:.3f} ms, bound "
-              f"{res[name]['bound_ms']:.5f} ms ({res[name]['bound_by']})")
+              f"{res[name]['bound_ms']:.5f} ms ({res[name]['bound_by']}), "
+              f"chain floor {res[name]['chain_floor_ms']} ms")
     res["dispatch_reads"] = reads
+    res["l2_latency"] = lat
     return res
 
 
@@ -2870,10 +3029,18 @@ def main() -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}; host "
           f"CPUs {os.cpu_count()}")
     build_s = build_everything(_build)
+    ptxas = {}
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if any(k in line for k in ("Compiling entry", "spill", "Used")):
                 print(f"[build] {name}.cu ptxas: {line.strip()}")
+        ptxas[name] = ptxas_report(_build.build_log(name))
+        print(f"[build] {name}.cu kernels: {ptxas[name]}")
+    for name in REDESIGNED:
+        if not ptxas[name] or any(k.get("stack", 1)
+                                  for k in ptxas[name].values()):
+            raise SystemExit(f"{name}: ptxas puts a stack frame on a kernel "
+                             f"({ptxas[name]})")
 
     if WORK.exists():
         shutil.rmtree(WORK)
@@ -2999,6 +3166,11 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
+            "redesigned": REDESIGNED.get(name),
+            "chain_floor_ms": k["chain_floor_ms"],
+            "longest_lane_probes": k["longest_lane_probes"],
+            "l2_latency_ns": seedres["l2_latency"]["ns"],
+            "ptxas": ptxas[name],
             "launches_a_batch": k["launches_a_batch"],
             "launches_by_path": {t: r["seed_launches"][name]
                                  for t, r in seed_paths.items()},

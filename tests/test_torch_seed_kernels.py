@@ -319,6 +319,53 @@ def test_wrapper_on_the_card_launches_or_raises(machine_args, monkeypatch,
         smem_torch._on_card(meta, wrapper)
 
 
+@pytest.mark.parametrize("B", [4096, 2048, 512, 300, 64, 1])
+def test_p1p3_geometry_fills_the_card_and_covers_every_lane(B):
+    """seed_p1p3 runs four threads a lane over 2B lanes: its blocks cover
+    every lane, and give each of an H100's 132 SMs a block whenever
+    there are lanes enough for one warp a SM (the main path's B = 4096:
+    256 blocks of 128 threads; a redo's B = 512: 128 blocks of 32)."""
+    sms = 132
+    lanes = 2 * B
+    threads, blocks = smem_cuda.p1p3_geometry(lanes, sms)
+    assert threads in (32, 64, 128)
+    assert blocks * threads // 4 >= lanes > (blocks - 1) * threads // 4
+    if lanes >= 8 * sms:
+        assert blocks >= sms
+    if B == 4096:
+        assert (threads, blocks) == (128, 256)
+
+
+def test_p1p3_wrapper_checks_L_and_passes_the_geometry(machine_args,
+                                                       monkeypatch):
+    """With the CUDA calls stubbed out: the launcher refuses L above 511
+    (the int16 symbol stage) before it launches anything, and passes
+    p1p3_geometry's block size to the kernel's launcher."""
+    args = machine_args["narrow"]["p1p3_machine"][0]
+    (dfm, L, NB, ITERS, read_id, qlen_l, st1, q2, qlen2, NP3, msl, mmi,
+     st3, _) = _clone(args)
+    monkeypatch.setattr(smem_cuda, "_device", lambda who, t: t.device)
+    monkeypatch.setattr(smem_cuda, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(smem_cuda, "_fn", lambda name: None)
+    calls = []
+    monkeypatch.setattr(smem_cuda, "_launch",
+                        lambda name, dev, *a: calls.append((name, a)))
+    I32 = torch.int32
+    sym = smem_torch._sym_tab(q2, qlen2, L)
+    fixed = (read_id.to(I32), qlen_l.to(I32), qlen2.to(I32))
+    for bad in (512, 1000, 0):
+        with pytest.raises(ValueError, match="L = "):
+            smem_cuda.p1p3(dfm, bad, NB, ITERS, NP3, msl, mmi, sym, *fixed,
+                           st1, st3)
+    assert calls == []
+    smem_cuda.p1p3(dfm, L, NB, ITERS, NP3, msl, mmi, sym, *fixed, st1, st3)
+    B = st1["mode"].shape[0]
+    (name, a), = calls
+    assert name == "seed_p1p3"
+    assert a[1] == smem_cuda.p1p3_geometry(2 * B, 132)[0]   # threads
+    assert a[2:4] == (B, L)
+
+
 # ---------------------------------------------------------------- dataflow
 
 @pytest.fixture(scope="module")
