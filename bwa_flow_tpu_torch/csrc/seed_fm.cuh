@@ -1,8 +1,8 @@
 // FM-index primitives of the seed machines (seed_p1p3.cu, seed_fwd.cu,
-// seed_bwd.cu) for one thread on the card: the all-symbol occ of one row
-// coordinate and the one-direction bwt_extend built on it (seed_fwd.cu),
-// the one-symbol probe (seed_p1p3.cu, seed_bwd.cu), and the single-base
-// start interval.
+// seed_bwd.cu) for one thread on the card: the one-symbol probe (the row
+// of one symbol of bwt_extend), whole in one thread (seed_bwd.cu) or
+// split over a quad of threads (seed_quad.cuh: seed_p1p3.cu,
+// seed_fwd.cu), and the single-base start interval.
 //
 // Each is the per-lane form of the plain PyTorch version in
 // bwa_flow_tpu_torch/ops/fm_torch.py (occ4_batch, set_intv_batch) and
@@ -98,71 +98,6 @@ struct FM {
     for (int c = 0; c < 5; ++c) L2[c] = l2[c];
   }
 
-  // occ(k, c) for c = 0..3 (bwa/bwt.c:169-186; fm_torch.occ4_batch).
-  __device__ __forceinline__ void occ4(T k, T out[4]) const {
-    if (k == (T)-1) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[c] = 0;
-      return;
-    }
-    if (k == seq_len) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[c] = L2[c + 1] - L2[c];
-      return;
-    }
-    T kk = k - (k >= primary ? (T)1 : (T)0);
-    if (kk < 0) kk = 0;
-    if (kk > seq_len - 1) kk = seq_len - 1;
-    const long long blk = (long long)kk / kBlock;
-    const int within = (int)((long long)kk % kBlock) + 1;
-    const int4 cnt = __ldg(rows + 2 * blk);
-    const int4 wd = __ldg(rows + 2 * blk + 1);
-    const unsigned w[4] = {(unsigned)wd.x, (unsigned)wd.y, (unsigned)wd.z,
-                           (unsigned)wd.w};
-    const int base[4] = {cnt.x, cnt.y, cnt.z, cnt.w};
-    unsigned keep[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int n = within - 16 * j;
-      n = n < 0 ? 0 : (n > 16 ? 16 : n);
-      // the first n symbols of a word are its top 2n bits
-      keep[j] = n == 0 ? 0u : ~((1u << (2 * (16 - n))) - 1u);
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const unsigned pat = (unsigned)c * 0x55555555u;
-      int n = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const unsigned x = ~(w[j] ^ pat);
-        n += __popc(x & (x >> 1) & 0x55555555u & keep[j]);
-      }
-      out[c] = (T)base[c] + (T)n;
-    }
-  }
-
-  // Row c of bwt_extend(ik, is_back) (bwa/bwt.c:262-275): the interval
-  // after adding base c, as (k, l, s) (bwt_extend_dir_batch + _take_row).
-  __device__ __forceinline__ void extend(const T ik[3], bool is_back, int c,
-                                         T ok[3]) const {
-    const T probe = is_back ? ik[0] : ik[1];
-    const T s = ik[2];
-    T tk[4], tl[4];
-    occ4(probe - 1, tk);
-    occ4(probe - 1 + s, tl);
-    const T crosses =
-        (probe <= primary && probe + s - 1 >= primary) ? (T)1 : (T)0;
-    // derived[c] = b3 + sum of ok_s over the symbols above c
-    T d = (is_back ? ik[1] : ik[0]) + crosses;
-#pragma unroll
-    for (int j = 3; j > 0; --j)
-      if (j > c) d += tl[j] - tk[j];
-    const T p = L2[c] + 1 + tk[c];
-    ok[0] = is_back ? p : d;
-    ok[1] = is_back ? d : p;
-    ok[2] = tl[c] - tk[c];
-  }
-
   // The start interval of base c (bwa/bwt.h:80; set_intv_batch).
   __device__ __forceinline__ void set_intv(int c, T& k, T& l, T& s) const {
     c = c < 0 ? 0 : (c > 3 ? 3 : c);
@@ -174,7 +109,7 @@ struct FM {
 
   // The row block and the count of symbols `within` it (0 for k = -1 and
   // k = seq_len, whose values come from no row) of coordinate k, with
-  // occ4's shift past `primary` and clamp.
+  // occ4_batch's shift past `primary` and clamp.
   __device__ __forceinline__ void locate(T k, T& blk, int& within) const {
     T kk = k - (k >= primary ? (T)1 : (T)0);
     kk = kk < 0 ? (T)0 : (kk > seq_len - 1 ? seq_len - 1 : kk);

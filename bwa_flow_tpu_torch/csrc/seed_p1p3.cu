@@ -32,9 +32,12 @@
 //     of 32, 16 or 8 lanes so that every SM gets a block
 //     (smem_cuda.p1p3_geometry);
 //   - the lane's row of the symbol table, both halves (symbols and packed
-//     pivots, int16: the pivot value (p << 6) | ... fits for L <= 511,
-//     which the wrapper checks), is staged in shared memory at lane start,
-//     so a step's only global gather is the FM row;
+//     pivots), is staged in shared memory at lane start, so a step's only
+//     global gather is the FM row. The stage is int16: the pivot value
+//     (p << 6) | ... fits for L <= 511 (smem_cuda.P1P3_MAX_L). Above that
+//     the kernel's other variant (kStage = false) stages nothing and reads
+//     the table from global memory through the read-only cache, which
+//     needs no shared memory and so works at any L;
 //   - nothing is indexed by a runtime value, so nothing goes to the stack.
 // A warp holds 8 lanes, so it waits on its longest of 8, not of 32.
 
@@ -42,12 +45,16 @@
 #include <cuda_runtime.h>
 
 #include "seed_fm.cuh"
+#include "seed_quad.cuh"
 
 namespace {
 
 using seedfm::clampi;
 using seedfm::FM;
 using seedfm::pick4;
+using seedquad::pick3;
+using seedquad::probe;
+using seedquad::Quad;
 
 template <typename T>
 struct P1P3Args {
@@ -71,46 +78,28 @@ struct P1P3Args {
   uint8_t* ovf3;
 };
 
-// The four threads of one lane: their mask in the warp and each one's
-// word j of a probe row.
-struct Quad {
-  unsigned mask;
-  int j;
-
-  __device__ __forceinline__ unsigned sum(unsigned v) const {
-    v += __shfl_xor_sync(mask, v, 1, 4);
-    v += __shfl_xor_sync(mask, v, 2, 4);
-    return v;
-  }
-};
-
-template <typename X>
-__device__ __forceinline__ X pick3(int j, X a0, X a1, X a2) {
-  return j == 0 ? a0 : (j == 1 ? a1 : a2);
-}
-
 template <typename T>
 __device__ __forceinline__ T pack_info(int start, int end) {
   if (sizeof(T) == 4) return (T)((start << 16) | end);
   return (T)(((long long)start << 32) | (long long)end);
 }
 
-// The forward one-symbol probe of (k, l, s) and symbol c, by the quad.
-template <typename T>
-__device__ __forceinline__ void probe(const FM<T>& fm, const Quad& q, T k,
-                                      T l, T s, int c, T& ok, T& ol,
-                                      T& os) {
-  seedfm::Part<T> p = fm.template part<1>(l, s, c, q.j);
-  p.n = q.sum(p.n);
-  fm.finish(p, k, l, s, false, c, ok, ol, os);
+// A value of the lane's symbol-table row: staged in shared memory (int16),
+// or read from global memory through the read-only cache (int32)
+__device__ __forceinline__ int sym_at(const int16_t* row, int p) {
+  return row[p];
+}
+__device__ __forceinline__ int sym_at(const int32_t* row, int p) {
+  return __ldg(row + p);
 }
 
-// sq, sp: the lane's staged symbols and pivot table (L each)
-template <typename T>
+// sq, sp: the lane's symbols and pivot table (L each), staged (S =
+// int16_t) or in global memory (S = int32_t)
+template <typename T, typename S>
 __device__ __forceinline__ void pass1_lane(const P1P3Args<T>& a,
                                            const FM<T>& fm, const Quad& q,
-                                           const int16_t* sq,
-                                           const int16_t* sp, int b) {
+                                           const S* sq, const S* sp,
+                                           int b) {
   const int L = a.L, NB = a.NB;
   int mode = a.mode1[b], x = a.x1[b], i = a.i1[b];
   int ik_info = a.info1[b], g = a.g1[b], nb = a.nb1[b];
@@ -121,7 +110,8 @@ __device__ __forceinline__ void pass1_lane(const P1P3Args<T>& a,
   int32_t* meta = a.brk_meta + (long long)b * 3 * NB;
   for (int it = 0; it < a.iters && mode != 3; ++it) {
     const bool m0 = mode == 0;
-    const int val = m0 ? sp[clampi(x, 0, L - 1)] : sq[clampi(i, 0, L - 1)];
+    const int val = m0 ? sym_at(sp, clampi(x, 0, L - 1))
+                       : sym_at(sq, clampi(i, 0, L - 1));
     // _fwd_pre2: pivot acquisition
     const int cand = x < L ? (val >> 6) : L;
     const bool found = cand < L;
@@ -185,11 +175,11 @@ __device__ __forceinline__ void pass1_lane(const P1P3Args<T>& a,
   if (q.j < 3) a.ik1[3 * b + q.j] = pick3(q.j, k, l, s);
 }
 
-template <typename T>
+template <typename T, typename S>
 __device__ __forceinline__ void pass3_lane(const P1P3Args<T>& a,
                                            const FM<T>& fm, const Quad& q,
-                                           const int16_t* sq,
-                                           const int16_t* sp, int b) {
+                                           const S* sq, const S* sp,
+                                           int b) {
   const int L = a.L, NP3 = a.NP3;
   int mode = a.mode3[b], x = a.x3[b], i = a.i3[b], n = a.n_mem[b];
   bool ovf = a.ovf3[b] != 0;
@@ -198,7 +188,8 @@ __device__ __forceinline__ void pass3_lane(const P1P3Args<T>& a,
   T* slots = a.mems + (long long)b * 4 * NP3;
   for (int it = 0; it < a.iters && mode != 3; ++it) {
     const bool m0 = mode == 0;
-    const int val = m0 ? sp[clampi(x, 0, L - 1)] : sq[clampi(i, 0, L - 1)];
+    const int val = m0 ? sym_at(sp, clampi(x, 0, L - 1))
+                       : sym_at(sq, clampi(i, 0, L - 1));
     // _p3_pre2
     const int cand = x < L ? (val >> 6) : L;
     const bool found = cand < L;
@@ -250,56 +241,71 @@ __device__ __forceinline__ void pass3_lane(const P1P3Args<T>& a,
   if (q.j < 3) a.ik3[3 * b + q.j] = pick3(q.j, k, l, s);
 }
 
-// Four threads a lane; dynamic shared memory: 2 * L + 2 int16 a lane.
-template <typename T>
+// Four threads a lane. kStage: the lane's symbol-table row is staged in
+// dynamic shared memory, 2 * L + 2 int16 a lane (L <= 511); else the
+// lane reads it from global memory (any L).
+template <typename T, bool kStage>
 __global__ void __launch_bounds__(128)
     p1p3_kernel(P1P3Args<T> a, const void* blocks, const T* L2,
                 long long seq_len, long long primary) {
   extern __shared__ int16_t stage[];
   const int lane = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 2);
   if (lane >= 2 * a.B) return;   // a quad shares its lane, so all 4 leave
-  const Quad q{0xFu << (threadIdx.x & 28u), (int)(threadIdx.x & 3u)};
+  const Quad q(threadIdx.x);
   const int L = a.L;
   const bool first = lane < a.B;
   const int b = first ? lane : lane - a.B;
-  // stage the lane's read row of both halves of the symbol table
+  // the lane's read row of both halves of the symbol table
   const long long row = (long long)(first ? a.read_id[b] : b) * L;
   const int32_t* src_q = a.sym + row;
   const int32_t* src_p = a.sym + (long long)a.B * L + row;
-  // a lane's 2L int16 and one word more, so the 8 lanes of a warp read
-  // different banks
-  int16_t* sq = stage + (threadIdx.x >> 2) * (2 * L + 2);
-  int16_t* sp = sq + L;
-#pragma unroll 8
-  for (int p = q.j; p < L; p += 4) {
-    sq[p] = (int16_t)__ldg(src_q + p);
-    sp[p] = (int16_t)__ldg(src_p + p);
-  }
-  __syncwarp(q.mask);
   const FM<T> fm(blocks, L2, seq_len, primary);
-  if (first) pass1_lane(a, fm, q, sq, sp, b);
-  else pass3_lane(a, fm, q, sq, sp, b);
+  if constexpr (kStage) {
+    // a lane's 2L int16 and one word more, so the 8 lanes of a warp read
+    // different banks
+    int16_t* sq = stage + (threadIdx.x >> 2) * (2 * L + 2);
+    int16_t* sp = sq + L;
+#pragma unroll 8
+    for (int p = q.j; p < L; p += 4) {
+      sq[p] = (int16_t)__ldg(src_q + p);
+      sp[p] = (int16_t)__ldg(src_p + p);
+    }
+    __syncwarp(q.mask);
+    if (first) pass1_lane(a, fm, q, (const int16_t*)sq, (const int16_t*)sp,
+                          b);
+    else pass3_lane(a, fm, q, (const int16_t*)sq, (const int16_t*)sp, b);
+  } else {
+    if (first) pass1_lane(a, fm, q, src_q, src_p, b);
+    else pass3_lane(a, fm, q, src_q, src_p, b);
+  }
 }
 
 template <typename T>
-int launch(P1P3Args<T> a, int threads, const void* blocks, const void* L2,
-           long long seq_len, long long primary, cudaStream_t stream) {
+int launch(P1P3Args<T> a, int threads, bool stage, const void* blocks,
+           const void* L2, long long seq_len, long long primary,
+           cudaStream_t stream) {
+  // the int16 stage holds L <= 511 only
   if (threads <= 0 || threads > 128 || threads % 32 != 0 || a.L <= 0 ||
-      a.L > 511)
+      (stage && a.L > 511))
     return (int)cudaErrorInvalidValue;
   const long long n = 8LL * a.B;   // 2B lanes, four threads each
-  if (n > 0) {
-    const size_t smem =
-        (size_t)(threads / 4) * (2 * a.L + 2) * sizeof(int16_t);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          p1p3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    p1p3_kernel<T><<<(unsigned)((n + threads - 1) / threads), threads, smem,
-                     stream>>>(a, blocks, (const T*)L2, seq_len, primary);
+  if (n <= 0) return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)((n + threads - 1) / threads);
+  if (!stage) {
+    p1p3_kernel<T, false><<<grid, threads, 0, stream>>>(
+        a, blocks, (const T*)L2, seq_len, primary);
+    return (int)cudaGetLastError();
   }
+  const size_t smem =
+      (size_t)(threads / 4) * (2 * a.L + 2) * sizeof(int16_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        p1p3_kernel<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  p1p3_kernel<T, true><<<grid, threads, smem, stream>>>(
+      a, blocks, (const T*)L2, seq_len, primary);
   return (int)cudaGetLastError();
 }
 
@@ -327,9 +333,12 @@ P1P3Args<T> args(int B, int L, int NB, int NP3, int iters, int min_seed_len,
 
 // ptrs: the 21 device pointers of P1P3Args in its order (sym ... ovf3).
 // wide: coordinates int64 (else int32). threads: a block's threads, a
-// multiple of 32 up to 128 (four a lane). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a block size or L (1..511) it does not take.
-extern "C" int seed_p1p3_launch(int wide, int threads, int B, int L, int NB,
+// multiple of 32 up to 128 (four a lane). stage: stage the symbol table
+// in shared memory (L <= 511), else read it from global memory. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a block size, an L < 1
+// or a staged L above 511.
+extern "C" int seed_p1p3_launch(int wide, int threads, int stage, int B,
+                                int L, int NB,
                                 int NP3, int iters, int min_seed_len,
                                 long long max_mem_intv, void* const* ptrs,
                                 const void* fm_blocks, const void* L2,
@@ -339,10 +348,10 @@ extern "C" int seed_p1p3_launch(int wide, int threads, int B, int L, int NB,
   if (wide)
     return launch(args<int64_t>(B, L, NB, NP3, iters, min_seed_len,
                                 max_mem_intv, ptrs),
-                  threads, fm_blocks, L2, seq_len, primary, s);
+                  threads, stage != 0, fm_blocks, L2, seq_len, primary, s);
   return launch(args<int32_t>(B, L, NB, NP3, iters, min_seed_len,
                               max_mem_intv, ptrs),
-                threads, fm_blocks, L2, seq_len, primary, s);
+                threads, stage != 0, fm_blocks, L2, seq_len, primary, s);
 }
 
 extern "C" const char* seed_error_string(int code) {

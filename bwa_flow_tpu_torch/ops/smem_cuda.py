@@ -15,10 +15,13 @@ ops/smem_torch.py computes:
 
 The machines run each lane to its end on the card, with the FM
 primitives of csrc/seed_fm.cuh, so a machine is one launch and its
-caller reads nothing from the card: ``seed_p1p3`` with four threads a
-lane (the lane's symbol-table row staged in shared memory, blocks from
-``p1p3_geometry``), ``seed_fwd`` and ``seed_bwd`` with one thread a lane.
-What bounds them is the latency of a lane's serial chain of dependent FM
+caller reads nothing from the card: ``seed_p1p3`` and ``seed_fwd`` with
+four threads a lane (csrc/seed_quad.cuh; blocks from ``p1p3_geometry``
+and ``fwd_geometry``; ``seed_p1p3`` stages the lane's symbol-table row
+in shared memory for L <= P1P3_MAX_L and reads it from global memory
+above), ``seed_bwd`` with one thread a queue entry, and ``seed_cohort``
+with one thread a row over chunks staged in shared memory. What bounds
+the machines is the latency of a lane's serial chain of dependent FM
 row gathers, not bytes: the index of a bacterial genome sits in the 50
 MB L2 (PERF.md). The dispatching wrappers (CPU tensors: the plain
 version; CUDA tensors: these launchers) are in smem_torch.py.
@@ -47,15 +50,17 @@ _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 _PP = ctypes.POINTER(ctypes.c_void_p)
 # the C launchers' arguments (csrc/<name>.cu)
 _ARGTYPES = {
-    "seed_p1p3": [_I] * 8 + [_LL, _PP, _P, _P, _LL, _LL, _P],
-    "seed_fwd": [_I] * 5 + [_PP, _P, _P, _LL, _LL, _P],
+    "seed_p1p3": [_I] * 9 + [_LL, _PP, _P, _P, _LL, _LL, _P],
+    "seed_fwd": [_I] * 6 + [_PP, _P, _P, _LL, _LL, _P],
     "seed_bwd": [_I] * 4 + [_PP, _P, _P, _LL, _LL, _P],
     "seed_cohort": [_I, _I, _P, _P, _I, _P, _P, _P],
 }
 _FNS: dict = {}
 _LOCK = threading.Lock()
-# seed_p1p3 stages a lane's symbol-table row as int16: the packed pivot
-# (p << 6) | (q[p] << 3) | q[p + 1], p <= L, fits for L <= 511
+# seed_p1p3 stages a lane's symbol-table row in shared memory as int16 up
+# to this L: the packed pivot (p << 6) | (q[p] << 3) | q[p + 1], p <= L,
+# fits for L <= 511; above it the kernel's unstaged variant reads the row
+# from global memory
 P1P3_MAX_L = 511
 _SMS: dict = {}
 
@@ -129,14 +134,25 @@ def _ptrs(ts) -> ctypes.Array:
     return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
 
 
-def p1p3_geometry(lanes: int, sms: int) -> tuple[int, int]:
-    """(threads a block, blocks) of a seed_p1p3 launch over `lanes` lanes,
-    four threads a lane: the widest block of 32, 16 or 8 lanes that still
-    gives each of the card's `sms` SMs a block, else 8 lanes a block."""
+def fwd_geometry(lanes: int, sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) of a launch over `lanes` lanes, four
+    threads a lane (seed_fwd, seed_p1p3): the widest block of 32, 16 or 8
+    lanes that still gives each of the card's `sms` SMs a block, else 8
+    lanes a block. seed_fwd deals the lanes to the blocks in turn (lane =
+    local lane x blocks + block), so the task pool's live prefix spreads
+    over every block."""
     for per in (32, 16):
         if -(-lanes // per) >= sms:
             return 4 * per, -(-lanes // per)
     return 32, -(-lanes // 8)
+
+
+def p1p3_geometry(lanes: int, sms: int, L: int) -> tuple[int, int, bool]:
+    """(threads a block, blocks, stage) of a seed_p1p3 launch over `lanes`
+    lanes of reads padded to L: blocks as fwd_geometry; stage (the int16
+    shared-memory stage of the symbol table) for L <= P1P3_MAX_L, else
+    the unstaged variant."""
+    return (*fwd_geometry(lanes, sms), L <= P1P3_MAX_L)
 
 
 def _sm_count(dev) -> int:
@@ -152,12 +168,12 @@ def p1p3(dfm, L: int, NB: int, ITERS: int, NP3: int, min_seed_len: int,
     """Run pass 1 (state s1, _fresh's keys) and pass 3 (state s3: mode, x,
     i, ik, mems, n_mem, ovf) to their ends on the card, updating both in
     place; ovf ends as the plain version's ovf | (mode != 3). sym is
-    _sym_tab's int32[2 * B * L] table; L is at most P1P3_MAX_L."""
+    _sym_tab's int32[2 * B * L] table; L > P1P3_MAX_L takes the unstaged
+    variant (p1p3_geometry)."""
     dev = _device("seed_p1p3", sym)
-    if not 0 < L <= P1P3_MAX_L:
-        raise ValueError(f"seed_p1p3: L = {L}; the kernel stages a read's "
-                         f"symbol-table row as int16, which holds L <= "
-                         f"{P1P3_MAX_L}")
+    if L <= 0:
+        raise ValueError(f"seed_p1p3: L = {L}; expected reads padded to "
+                         "L >= 1")
     B = s1["mode"].shape[0]
     dt = s1["ik"].dtype
     fm = _fm_args(dfm, dev, dt)
@@ -179,9 +195,9 @@ def p1p3(dfm, L: int, NB: int, ITERS: int, NP3: int, min_seed_len: int,
            _check("s3.n_mem", s3["n_mem"], i32, B, dev),
            _check("s3.ovf", s3["ovf"], u8, B, dev)]
     _fn("seed_p1p3")      # the kernel first (built at first use), then
-    threads, _ = p1p3_geometry(2 * B, _sm_count(dev))   # the card's SMs
-    _launch("seed_p1p3", dev, fm[4], threads, B, L, NB, NP3, ITERS,
-            int(min_seed_len), int(max_mem_intv), _ptrs(ts), *fm[:4])
+    threads, _, stage = p1p3_geometry(2 * B, _sm_count(dev), L)  # the SMs
+    _launch("seed_p1p3", dev, fm[4], threads, int(stage), B, L, NB, NP3,
+            ITERS, int(min_seed_len), int(max_mem_intv), _ptrs(ts), *fm[:4])
 
 
 def fwd_scan(dfm, L: int, NB: int, ITERS: int, q_flat, read_id, qlen, mi,
@@ -203,7 +219,10 @@ def fwd_scan(dfm, L: int, NB: int, ITERS: int, q_flat, read_id, qlen, mi,
            _check("s.brk_kls", s["brk_kls"], dt, NL * 3 * NB + 1, dev),
            _check("s.brk_meta", s["brk_meta"], i32, NL * 3 * NB + 1, dev),
            _check("s.ovf", s["ovf"], torch.bool, NL, dev)]
-    _launch("seed_fwd", dev, fm[4], NL, L, NB, ITERS, _ptrs(ts), *fm[:4])
+    _fn("seed_fwd")
+    threads, _ = fwd_geometry(NL, _sm_count(dev))
+    _launch("seed_fwd", dev, fm[4], threads, NL, L, NB, ITERS, _ptrs(ts),
+            *fm[:4])
 
 
 def bwd_walk(dfm, L: int, ITB: int, q_flat, read_id, bst0, i_b0, mi,

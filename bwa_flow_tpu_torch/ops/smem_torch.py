@@ -23,7 +23,7 @@ big-budget device call, then by the host golden.
 
 The three machines and cohort emission (the XLA loops of smem_jax) are
 hand-written CUDA kernels on the card (ops/smem_cuda.py, csrc/seed_*.cu),
-one thread a lane running the lane's loop to its end, so on the card
+each machine lane run to its end by one thread or a quad, so on the card
 the seed program of an index with a dense SA reads nothing from the
 device until its caller fetches the result. Each kernel's plain version
 stays here (_p1p3_machine, _fwd_scan_machine, _bwd_walk_machine,
@@ -516,8 +516,9 @@ def bwd_walk_machine(dfm: DeviceFM, L: int, q_flat, read_id, bst0, i_b0,
 
 
 def cohort_emit(r, brk_g, valid, NB: int):
-    """_cohort_emit: the seed_cohort kernel (one thread a row) on a CUDA
-    tensor, the plain version on a CPU one."""
+    """_cohort_emit: the seed_cohort kernel (blocks of 32 rows, a row's
+    slots staged in shared memory a chunk at a time) on a CUDA tensor,
+    the plain version on a CPU one."""
     if not _on_card(r, "cohort_emit"):
         return _cohort_emit(r, brk_g, valid, NB)
     if brk_g.stride(1) != 1:

@@ -21,7 +21,8 @@ Phases:
      _native, _markdup, _bam; one nvcc or c++ per source, all started
      together, each timed); prints each kernel's registers, shared
      memory, stack frame and spills as ptxas reports them, and fails if
-     a kernel of seed_p1p3 or seed_bwd (REDESIGNED) has a stack frame.
+     a kernel of a seed kernel redesigned for Hopper (REDESIGNED: all
+     four) has a stack frame.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
@@ -103,7 +104,9 @@ Phases:
      to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
      phase 3's reads (SAM == full.sam, one validation a batch), the same
      run with the watchdog off (--device-timeout 0) and on, in turns (its
-     cost, beside phase 3), one lane's score off by one (the validation
+     cost, beside phase 3, and where it goes: watched waits a batch, the
+     seconds inside wait_ready, and the seconds of the device reads, all
+     and the seed collect's), one lane's score off by one (the validation
      must name its read), qle = -3 with validation off (the structural
      check), and a
      ~10 s spin kernel queued before a wave's fetch under
@@ -151,12 +154,15 @@ Phases:
      seed_cohort) against their plain versions on the card, after phase
      4: collect_intv_device on phase 3's first 4096 reads and on 2048 of
      phase 4's pairs (narrow int32), on the wide int64 machine, with the
-     big redo budgets (512 reads, MAXM 256) and with p2x = 4. Each
+     big redo budgets (512 reads, MAXM 256), with p2x = 4, and on
+     LONG_READS reads of LONG_LEN bp cut from the genome (1%
+     substitutions, both strands) at smem_L = LONG_L, above the int16
+     stage's limit (seed_p1p3's unstaged variant; timed). Each
      batch's whole program on the kernels must equal the same program on
      the plain versions, and each kernel call of it must equal its plain
      version on the same inputs, every output array, tolerance 0 (a
      machine state's drop-sentinel slot is a write sink, not an
-     output). On the SE and PE batches each kernel (its launcher, on
+     output). On the SE, PE and long batches each kernel (its launcher, on
      inputs made beforehand, the stream held by a spin kernel while the
      launches are queued) and each plain version is timed with CUDA
      events, beside a bound: the larger of its HBM bytes (the index,
@@ -164,7 +170,8 @@ Phases:
      lanes' state and the stores written once; a lane's repeated FM row
      gathers hit the L2) over 3.35 TB/s and its int32 operations
      (OPS_PER_PROBE a probe) over 16.7e12/s, the steps counted on the
-     plain run. Beside the bound, each timed call of seed_p1p3,
+     plain run; seed_fwd's live lanes (mode 1 on entry) and probes a
+     call are printed. Beside the bound, each timed call of seed_p1p3,
      seed_fwd and seed_bwd gets a chain floor: its longest lane's probes
      (counted per lane on the plain run, or for the backward walk from
      its results) times the card's dependent L2-hit latency, which the
@@ -183,10 +190,9 @@ Phases:
      true, "device": {...}}. The seed kernels' launches are those of the
      native host-mode SE run (the CLI's default), their ms, plain_ms and
      bound_ms phase 12's at the SE batch, with its chain floor, the
-     latency under it, each kernel's ptxas report and, for seed_p1p3
-     and seed_bwd, what their redesign for Hopper changed
-     ("redesigned"); the line also holds the seed program's seconds a
-     batch on each main path.
+     latency under it, each kernel's ptxas report and what its redesign
+     for Hopper changed ("redesigned"); the line also holds the seed
+     program's seconds a batch on each main path.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -330,6 +336,21 @@ def make_genome(length: int, seed: int, sine_frac=0.28, line_frac=0.12,
     return g
 
 
+def cut_reads(genome: np.ndarray, n: int, length: int, seed: int) -> list:
+    """n reads of `length` symbols cut from the genome at random, 1%
+    substitutions, half of them reverse-complemented."""
+    rng = np.random.default_rng(seed)
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    out = []
+    for _ in range(n):
+        pos = int(rng.integers(0, len(genome) - length))
+        r = genome[pos:pos + length].copy()
+        m = rng.random(length) < 0.01
+        r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
+        out.append(comp[r[::-1]] if rng.random() < 0.5 else r)
+    return out
+
+
 def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int):
     """ref.fa, reads.fq (n_reads x 151 bp, 1% substitutions, both
     strands) and sub.fq (the first N_SUB reads)."""
@@ -339,18 +360,9 @@ def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int):
         f.write(">chr1 synthetic repeat-realistic genome\n")
         for i in range(0, len(text), 80):
             f.write(text[i:i + 80] + "\n")
-    rng = np.random.default_rng(seed)
-    comp = np.array([3, 2, 1, 0], np.uint8)
-    recs = []
-    for i in range(n_reads):
-        pos = int(rng.integers(0, len(genome) - READ_LEN))
-        r = genome[pos:pos + READ_LEN].copy()
-        m = rng.random(READ_LEN) < 0.01
-        r[m] = (r[m] + rng.integers(1, 4, int(m.sum()))) % 4
-        if rng.random() < 0.5:
-            r = comp[r[::-1]]
-        recs.append(f"@r{i}\n{bases[r].tobytes().decode()}\n+\n"
-                    f"{'I' * READ_LEN}\n")
+    recs = [f"@r{i}\n{bases[r].tobytes().decode()}\n+\n{'I' * READ_LEN}\n"
+            for i, r in enumerate(cut_reads(genome, n_reads, READ_LEN,
+                                            seed))]
     (work / "reads.fq").write_text("".join(recs))
     (work / "sub.fq").write_text("".join(recs[:N_SUB]))
 
@@ -1739,6 +1751,68 @@ cli.entry_main(sys.argv[2:])
 """
 
 
+@contextlib.contextmanager
+def watchdog_split():
+    """While the block runs, split the batch aligner's device reads: the
+    watched waits (BatchAligner.wait calls; with --device-timeout 0 each
+    returns at once), the seconds inside wait_ready (the watchdog's own
+    wait), and the seconds of every fetch and put (wait and copy), all of
+    them and those inside seeds_collect (the seed span's reads); yields
+    the sums."""
+    import threading
+
+    from bwa_flow_tpu_torch.pipeline import batch as bm
+    acc = dict(waits=0, seed_waits=0, wait_ready_s=0.0, read_s=0.0,
+               seed_read_s=0.0)
+    inside = threading.local()
+    cls = bm.BatchAligner
+    real = dict(wait_ready=bm.wait_ready, wait=cls.wait, fetch=cls.fetch,
+                put=cls.put, seeds_collect=cls.seeds_collect)
+
+    def seeding() -> bool:
+        return getattr(inside, "seed", False)
+
+    def wait_ready(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real["wait_ready"](*a, **k)
+        finally:
+            acc["wait_ready_s"] += time.perf_counter() - t0
+
+    def wait(self, *a, **k):
+        acc["waits"] += 1
+        acc["seed_waits"] += seeding()
+        return real["wait"](self, *a, **k)
+
+    def reader(name):
+        def read(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real[name](self, *a, **k)
+            finally:
+                dt = time.perf_counter() - t0
+                acc["read_s"] += dt
+                if seeding():
+                    acc["seed_read_s"] += dt
+        return read
+
+    def seeds_collect(self, *a, **k):
+        inside.seed = True
+        try:
+            return real["seeds_collect"](self, *a, **k)
+        finally:
+            inside.seed = False
+    bm.wait_ready = wait_ready
+    cls.wait, cls.fetch, cls.put = wait, reader("fetch"), reader("put")
+    cls.seeds_collect = seeds_collect
+    try:
+        yield acc
+    finally:
+        bm.wait_ready = real["wait_ready"]
+        for name in ("wait", "fetch", "put", "seeds_collect"):
+            setattr(cls, name, real[name])
+
+
 def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     """--validate-every 1 on phase 3's reads (SAM == full.sam, one
     validation a batch); the corrupted-result injections (one lane's
@@ -1746,7 +1820,7 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     the structural check); a real stall (a spin kernel on the wave's
     stream before its fetch) under --device-timeout STALL_TIMEOUT, in
     process and in a CLI subprocess; and phase 3's run with the watchdog
-    off and on in turns, its cost."""
+    off and on in turns, its cost and where it goes (watchdog_split)."""
     import torch
 
     from bwa_flow_tpu_torch.ops import extend_cuda
@@ -1772,20 +1846,22 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
                          "3's full.sam")
     if v["validations"] != v["seed_batches"]:
         raise SystemExit("not one validation a batch")
-    # the watchdog's cost: the same run with it off and on, in turns
-    # (the validated run above is the first "on"; its golden checks,
-    # outside every span, are taken out of its wall)
-    on = [dict(spans=runs["validate"]["spans"],
-               wall_s=runs["validate"]["wall_s"] - val["s"])]
-    off = []
-    waits = (BatchAligner, "wait", lambda a: None)
-    for i, timeout in enumerate(("0", "300", "0")):
-        with _recording(*waits) as seen:
+    # the watchdog's cost: the same run with it off and on, in turns, and
+    # where it goes (watchdog_split)
+    on, off = [], []
+    for i, timeout in enumerate(("0", "300", "300", "0")):
+        with watchdog_split() as split:
             r = _cli_run(f"--device-timeout {timeout}", base + [
                 "--device-timeout", timeout, "-o",
                 str(work / f"p9_t{i}.sam"), ref, fq])
-        if timeout == "300":
-            n_waits = len(seen)
+        r["split"] = split
+        batches = max(1, r["stats"]["seed_batches"])
+        print(f"[p9] --device-timeout {timeout}: {split['waits']} watched "
+              f"waits ({split['waits'] / batches:.1f} a batch), "
+              f"{split['seed_waits']} of them in the seed collect; "
+              f"wait_ready {split['wait_ready_s']:.4f} s; device reads "
+              f"(fetch and put, wait and copy) {split['read_s']:.4f} s, "
+              f"{split['seed_read_s']:.4f} s of them in the seed collect")
         if _body(work / f"p9_t{i}.sam") != _body(work / "full.sam"):
             raise SystemExit(f"the --device-timeout {timeout} SAM differs "
                              "from phase 3's full.sam")
@@ -1793,25 +1869,41 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     runs["timeout0"] = off[0]
 
     def mean(rs, key):
-        return sum(r["spans"][key] if key != "wall_s" else r["wall_s"]
-                   for r in rs) / len(rs)
+        return sum(r["wall_s"] if key == "wall_s" else
+                   r["split"][key] if key in r["split"] else
+                   r["spans"][key] for r in rs) / len(rs)
     cost = {k: (mean(on, k), mean(off, k))
-            for k in ("seed", "extend_waves", "wall_s")}
+            for k in ("seed", "extend_waves", "wall_s", "waits",
+                      "wait_ready_s", "read_s", "seed_read_s")}
     print(f"[p9] watchdog cost over whole runs (means of 2 on, 2 off, in "
           f"turns): seed span {cost['seed'][0]:.3f} s on, "
           f"{cost['seed'][1]:.3f} s off ({cost['seed'][0] / cost['seed'][1]:.3f}x); "
           f"extend_waves {cost['extend_waves'][0]:.3f} / "
           f"{cost['extend_waves'][1]:.3f} s; wall {cost['wall_s'][0]:.2f} / "
           f"{cost['wall_s'][1]:.2f} s ({cost['wall_s'][0] / cost['wall_s'][1]:.3f}x); "
-          f"phase 3 (on, first index load included): seed "
-          f"{main['spans']['seed']:.3f} s, extend_waves "
-          f"{main['spans']['extend_waves']:.3f} s, wall {main['wall_s']:.2f} s;"
-          f" {n_waits} watched waits a run")
+          f"device reads {cost['read_s'][0]:.4f} / {cost['read_s'][1]:.4f} s "
+          f"(seed collect's {cost['seed_read_s'][0]:.4f} / "
+          f"{cost['seed_read_s'][1]:.4f} s), wait_ready "
+          f"{cost['wait_ready_s'][0]:.4f} s on; {cost['waits'][0]:.0f} "
+          f"watched waits a run; phase 3 (on, first index load included): "
+          f"seed {main['spans']['seed']:.3f} s, wall {main['wall_s']:.2f} s")
+    # the watchdog's own cost: what its waits add to the device reads,
+    # against the seed span and the wall with it off
+    own = dict(seed=cost["seed_read_s"][0] - cost["seed_read_s"][1],
+               wall=cost["read_s"][0] - cost["read_s"][1])
+    print(f"[p9] the watchdog's own cost (device reads on less off): "
+          f"{own['seed'] * 1e3:+.2f} ms in the seed collect, "
+          f"{own['seed'] / cost['seed'][1] * 100:+.2f}% of the seed span; "
+          f"{own['wall'] * 1e3:+.2f} ms in all device reads, "
+          f"{own['wall'] / cost['wall_s'][1] * 100:+.3f}% of the wall")
     runs["watchdog"] = dict(
+        own_s=own, own_seed_share=own["seed"] / cost["seed"][1],
+        own_wall_share=own["wall"] / cost["wall_s"][1],
         runs={k: [[round(r["spans"]["seed"], 3), round(r["wall_s"], 2)]
                   for r in rs] for k, rs in (("on", on), ("off", off))},
         seed_ratio=cost["seed"][0] / cost["seed"][1],
-        wall_ratio=cost["wall_s"][0] / cost["wall_s"][1], waits=n_waits)
+        wall_ratio=cost["wall_s"][0] / cost["wall_s"][1],
+        waits=cost["waits"][0], split={k: v for k, v in cost.items()})
 
     # one lane's score off by one, in a lane of a read the validation
     # samples (reads 0 and N_SUB / 2 of the batch; each of these reads
@@ -2441,6 +2533,10 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
 SEED_L = 160        # BatchAligner's smem_L: the seed machines' read length
 SEED_B = 4096       # reads of a main-path seed batch
 SEED_REPS = 5       # timed launches of each seed kernel
+LONG_READS = 256    # reads of phase 12's long-read batch ...
+LONG_LEN = 700      # ... of this length ...
+LONG_L = 720        # ... padded to this smem_L (above P1P3_MAX_L)
+LONG_SEED = 0x10E6
 # the seed kernels: name -> (wrapper in smem_torch, its plain version,
 # the JAX loop it replaces)
 SEED_KERNELS = {
@@ -2457,9 +2553,16 @@ SEED_KERNELS = {
 # the design changed
 REDESIGNED = {
     "seed_p1p3": "four threads a lane, the lane's symbols staged in shared "
-                 "memory, the one-symbol FM probe, blocks over every SM",
+                 "memory (reads from global memory above smem_L 511), the "
+                 "one-symbol FM probe, blocks over every SM",
+    "seed_fwd": "four threads a lane, the one-symbol FM probe, the next "
+                "read symbol loaded beside the rows, lanes dealt to the "
+                "blocks in turn so the live prefix reaches every SM",
     "seed_bwd": "the one-symbol FM probe, the next read symbol loaded "
                 "beside the rows",
+    "seed_cohort": "blocks of 32 rows, each row's slots in chunks of 32 "
+                   "loaded with coalesced reads and staged in shared "
+                   "memory, one thread's scan a row, coalesced stores",
 }
 # a machine state's flat stores end in a drop-sentinel slot: a sink for
 # the plain version's dropped scatters, not an output
@@ -2799,14 +2902,17 @@ def _launcher(name: str, args: tuple, n: int):
 
 
 def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
-                timed: bool, lat_ns: float | None = None) -> dict:
-    """collect_intv_device on one batch on the card: the whole program on
-    the kernels against the same program on the plain versions, then
-    each kernel call of the program against its plain version on the
-    same inputs (every output array, tolerance 0: all values are
-    integers); with timed, each kernel and plain version timed with CUDA
-    events, the kernel's bound and, given the dependent L2-hit latency
-    lat_ns, its chain floor: the longest lane's probes times lat_ns.
+                timed: bool, lat_ns: float | None = None,
+                L: int = SEED_L) -> dict:
+    """collect_intv_device on one batch of reads padded to L on the card:
+    the whole program on the kernels against the same program on the
+    plain versions, then each kernel call of the program against its
+    plain version on the same inputs (every output array, tolerance 0:
+    all values are integers); with timed, each kernel and plain version
+    timed with CUDA events, the kernel's bound and, given the dependent
+    L2-hit latency lat_ns, its chain floor: the longest lane's probes
+    times lat_ns. Each call of a scan machine records its probes (mode-1
+    steps, counted on the plain run), seed_fwd's also its live lanes.
     Returns name -> [per-call record]."""
     import torch
 
@@ -2816,8 +2922,8 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
     params = st._opt_params(MemOpt())
 
     def program():
-        return st.collect_intv_device(dfm, SEED_L, 64, MAXM, SEED_L * 16,
-                                      q, qlen, *params, **kw)
+        return st.collect_intv_device(dfm, L, 64, MAXM, L * 16, q, qlen,
+                                      *params, **kw)
     with captured_seed_calls() as log:
         got = program()
     torch.cuda.synchronize()
@@ -2828,7 +2934,7 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
     finally:
         st._on_card = real
     err, bad = _diff(got, want)
-    print(f"[p12] {tag}: B={q.shape[0]}, {q.dtype} reads, coordinates "
+    print(f"[p12] {tag}: B={q.shape[0]}, L={L}, {q.dtype} reads, coordinates "
           f"{dfm.L2.dtype}, {kw}: the seed program on the kernels vs on "
           f"the plain versions: {len(got)} outputs, mismatching values "
           f"{bad}, max |err| {err}")
@@ -2854,6 +2960,10 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
                      "seed_cohort": lambda: args[0]}[name]().shape[0]
             rec = dict(call=ci, outputs=len(gl), max_abs_err=e,
                        lanes=int(lanes))
+            if name in ("seed_p1p3", "seed_fwd"):
+                rec["probes"] = int(sum(int(v) for v in acc["probe"]))
+            if name == "seed_fwd":
+                rec["live_lanes"] = int((args[8]["mode"] == 1).sum())
             if timed:
                 rec["ms"] = _time_ms(_launcher(name, args, SEED_REPS),
                                      SEED_REPS, fill=True)
@@ -2863,9 +2973,13 @@ def _seed_batch(tag: str, dfm, q, qlen, MAXM: int, kw: dict,
                 rec["chain_floor_ms"] = (
                     None if lat_ns is None or n_chain is None
                     else n_chain * lat_ns * 1e-6)
-            print(f"[p12] {tag} {name} call {ci}: {rec['lanes']} lanes, "
-                  f"{len(gl)} output arrays, mismatching values {b}, max "
-                  f"|err| {e}" + (
+            live = (f" ({rec['live_lanes']} live)" if "live_lanes" in rec
+                    else "")
+            probes = (f", {rec['probes']} probes" if "probes" in rec
+                      else "")
+            print(f"[p12] {tag} {name} call {ci}: {rec['lanes']} lanes{live}"
+                  f"{probes}, {len(gl)} output arrays, mismatching values "
+                  f"{b}, max |err| {e}" + (
                       f"; kernel {rec['ms']:.4f} ms a launch, plain "
                       f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f}"
                       f" ms ({rec['bound_by']}: {rec['bytes']} bytes over "
@@ -2939,10 +3053,11 @@ def seeds_dispatch_reads(ba, seqs) -> dict:
     return dict(before=seen[:i], after=seen[i + 1:], syncs=syncs)
 
 
-def phase_seed_kernels(work: Path, device: str) -> dict:
+def phase_seed_kernels(work: Path, genome: np.ndarray, device: str) -> dict:
     """The four seed kernels against their plain versions on the card at
-    the main path's shapes, and the seed dispatch's device reads; returns
-    name -> numbers."""
+    the main path's shapes and on long reads (smem_L above the int16
+    stage's limit), and the seed dispatch's device reads; returns name ->
+    numbers."""
     import itertools
 
     from bwa_flow_tpu_torch.index.io import load_index
@@ -2959,8 +3074,8 @@ def phase_seed_kernels(work: Path, device: str) -> dict:
         zip(read_seqs(work / "r1.fq"), read_seqs(work / "r2.fq")),
         SEED_B // 2) for r in pair]
 
-    def batch(reads):
-        q, qlen = smem_torch.pad_reads(reads, SEED_L)
+    def batch(reads, L=SEED_L):
+        q, qlen = smem_torch.pad_reads(reads, L)
         return (ba.put(q, ba.device), ba.put(qlen, ba.device))
     narrow, wide = ba.dfm.narrow(), ba.dfm
     lat = l2_latency_ns(wide.fm_blocks.numel() * 4, wide.fm_blocks.device)
@@ -2974,6 +3089,11 @@ def phase_seed_kernels(work: Path, device: str) -> dict:
             ("p2x4", narrow, se, 128, dict(pack_H=32, p2x=4), False)):
         out[tag] = _seed_batch(tag, dfm, *batch(reads), MAXM, kw, timed,
                                lat["ns"])
+    # reads longer than the int16 stage of seed_p1p3 holds
+    out["long"] = _seed_batch(
+        "long", narrow, *batch(cut_reads(genome, LONG_READS, LONG_LEN,
+                                         LONG_SEED), LONG_L),
+        128, {}, True, lat["ns"], L=LONG_L)
 
     reads = seeds_dispatch_reads(ba, se)
     print(f"[p12] seeds_dispatch of {len(se)} reads on the dense-SA path: "
@@ -3065,7 +3185,7 @@ def main() -> int:
         mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
         pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
     seedres = timed_phase("12 seed kernels", phase_seed_kernels, WORK,
-                          "cuda")
+                          genome, "cuda")
     timed_phase("5 mean waves", phase_wave_shape, genome, cuda, kres,
                 {"ksw_extend2": mres["path"],
                  "ksw_extend2_i16": pres["path"]})

@@ -27,7 +27,7 @@ import torch
 
 import jax.numpy as jnp
 
-from bwa_flow_tpu.ops import smem_jax
+from bwa_flow_tpu.ops import fm_jax, smem_jax
 from bwa_flow_tpu_torch.index.build import build_index
 from bwa_flow_tpu_torch.io.sam import Read
 from bwa_flow_tpu_torch.models import golden
@@ -260,6 +260,35 @@ def test_cohort_emit_equals_jax_on_machine_calls(machine_args):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("case", ["narrow", "wide"])
+def test_collect_intv_device_long_reads_equal_jax(idx, case):
+    """Reads longer than seed_p1p3's int16 symbol stage holds (620 bp with
+    SNPs, N runs, deletions, unmappable ones) at smem_L = 640: the port's
+    seed program (its plain machines on the CPU) and the JAX package's
+    give the same outputs, bit for bit; nothing refuses the length."""
+    L_ = 640
+    assert L_ > smem_cuda.P1P3_MAX_L
+    reads = _sample_reads(np.random.default_rng(0x10E6), idx["contigs"], 6,
+                          L=620)
+    q, qlen = smem_jax.pad_reads(reads, L_)
+    opt = MemOpt()
+    dj = fm_jax.DeviceFM.from_host(idx["fm"])
+    dt = idx["dfm"]
+    if case == "narrow":
+        dj, dt = fm_jax._narrow_view(dj), dt.narrow()
+    oj = smem_jax.collect_intv_device(dj, L_, 64, 128, L_ * 16,
+                                      jnp.asarray(q), jnp.asarray(qlen),
+                                      *smem_jax._opt_params(opt))
+    ot = smem_torch.collect_intv_device(dt, L_, 64, 128, L_ * 16,
+                                        torch.as_tensor(q),
+                                        torch.as_tensor(qlen),
+                                        *smem_torch._opt_params(opt))
+    assert len(oj) == len(ot)
+    for a, b in zip(oj, ot):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    assert int(ot[1].sum()) > 0
+
+
 @pytest.mark.parametrize("wrapper,plain", [
     ("p1p3_machine", "_p1p3_machine"),
     ("fwd_scan_machine", "_fwd_scan_machine"),
@@ -324,23 +353,31 @@ def test_p1p3_geometry_fills_the_card_and_covers_every_lane(B):
     """seed_p1p3 runs four threads a lane over 2B lanes: its blocks cover
     every lane, and give each of an H100's 132 SMs a block whenever
     there are lanes enough for one warp a SM (the main path's B = 4096:
-    256 blocks of 128 threads; a redo's B = 512: 128 blocks of 32)."""
+    256 blocks of 128 threads; a redo's B = 512: 128 blocks of 32). It
+    stages the symbol table in shared memory up to L = 511 and takes
+    the unstaged variant above."""
     sms = 132
     lanes = 2 * B
-    threads, blocks = smem_cuda.p1p3_geometry(lanes, sms)
-    assert threads in (32, 64, 128)
+    threads, blocks, stage = smem_cuda.p1p3_geometry(lanes, sms, 160)
+    assert threads in (32, 64, 128) and stage
     assert blocks * threads // 4 >= lanes > (blocks - 1) * threads // 4
     if lanes >= 8 * sms:
         assert blocks >= sms
     if B == 4096:
         assert (threads, blocks) == (128, 256)
+    for L, want in ((1, True), (511, True), (512, False), (720, False),
+                    (5000, False)):
+        assert smem_cuda.p1p3_geometry(lanes, sms, L) == (threads, blocks,
+                                                          want)
 
 
 def test_p1p3_wrapper_checks_L_and_passes_the_geometry(machine_args,
                                                        monkeypatch):
-    """With the CUDA calls stubbed out: the launcher refuses L above 511
-    (the int16 symbol stage) before it launches anything, and passes
-    p1p3_geometry's block size to the kernel's launcher."""
+    """With the CUDA calls stubbed out: the launcher takes any L >= 1,
+    passes p1p3_geometry's block size and stage flag to the kernel's
+    launcher (staged at the machines' L, unstaged for L = 512 and 1000,
+    reads padded to that L), and refuses L = 0 before it launches
+    anything."""
     args = machine_args["narrow"]["p1p3_machine"][0]
     (dfm, L, NB, ITERS, read_id, qlen_l, st1, q2, qlen2, NP3, msl, mmi,
      st3, _) = _clone(args)
@@ -351,19 +388,50 @@ def test_p1p3_wrapper_checks_L_and_passes_the_geometry(machine_args,
     monkeypatch.setattr(smem_cuda, "_launch",
                         lambda name, dev, *a: calls.append((name, a)))
     I32 = torch.int32
-    sym = smem_torch._sym_tab(q2, qlen2, L)
     fixed = (read_id.to(I32), qlen_l.to(I32), qlen2.to(I32))
-    for bad in (512, 1000, 0):
-        with pytest.raises(ValueError, match="L = "):
-            smem_cuda.p1p3(dfm, bad, NB, ITERS, NP3, msl, mmi, sym, *fixed,
-                           st1, st3)
-    assert calls == []
-    smem_cuda.p1p3(dfm, L, NB, ITERS, NP3, msl, mmi, sym, *fixed, st1, st3)
     B = st1["mode"].shape[0]
-    (name, a), = calls
-    assert name == "seed_p1p3"
-    assert a[1] == smem_cuda.p1p3_geometry(2 * B, 132)[0]   # threads
-    assert a[2:4] == (B, L)
+    with pytest.raises(ValueError, match="L = 0"):
+        smem_cuda.p1p3(dfm, 0, NB, ITERS, NP3, msl, mmi,
+                       torch.zeros(0, dtype=I32), *fixed, st1, st3)
+    assert calls == []
+    for L_ in (L, 512, 1000):
+        q_l = torch.nn.functional.pad(q2, (0, L_ - q2.shape[1]), value=4)
+        sym = smem_torch._sym_tab(q_l, qlen2, L_)
+        smem_cuda.p1p3(dfm, L_, NB, ITERS, NP3, msl, mmi, sym, *fixed, st1,
+                       st3)
+        name, a = calls.pop()
+        threads, _, stage = smem_cuda.p1p3_geometry(2 * B, 132, L_)
+        assert name == "seed_p1p3"
+        assert a[1:5] == (threads, int(stage), B, L_)
+        assert a[2] == int(L_ <= smem_cuda.P1P3_MAX_L)
+
+
+@pytest.mark.parametrize("lanes", [8192, 16384, 4096, 1000, 96, 7, 1])
+def test_fwd_geometry_covers_every_lane_and_spreads_the_prefix(lanes):
+    """seed_fwd runs four threads a lane and deals the lanes to its blocks
+    in turn (csrc/seed_fwd.cu: lane = local lane x gridDim.x + blockIdx.x):
+    with fwd_geometry's blocks every lane is run by exactly one quad, and
+    the pool's dense prefix of k live lanes lands on min(k, blocks)
+    distinct blocks, so every SM gets live lanes once k >= blocks >= 132
+    (the main path's 8192 lanes: 256 blocks of 128 threads)."""
+    sms = 132
+    threads, blocks = smem_cuda.fwd_geometry(lanes, sms)
+    assert smem_cuda.p1p3_geometry(lanes, sms, 160) == (threads, blocks,
+                                                        True)
+    if lanes == 8192:
+        assert (threads, blocks) == (128, 256)
+    per = threads // 4
+    block = np.repeat(np.arange(blocks), per)
+    local = np.tile(np.arange(per), blocks)
+    lane = local * blocks + block
+    run = lane < lanes
+    assert np.array_equal(np.sort(lane[run]), np.arange(lanes))
+    assert run.sum() == lanes
+    for k in sorted({1, 2, lanes // 3, lanes // 2, blocks, lanes}):
+        if 0 < k <= lanes:
+            assert len(set(block[run & (lane < k)])) == min(k, blocks), k
+    if lanes >= 8 * sms:
+        assert blocks >= sms
 
 
 # ---------------------------------------------------------------- dataflow
