@@ -43,10 +43,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 HOST_SRC = CSRC / "host"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 HOST_BUILD_DIR = BUILD_DIR.parent / "host"
-# the CUDA sources (csrc/<name>.cu): both ksw_extend2 kernels and the four
-# kernels of the seed program's loops
+# the CUDA sources (csrc/<name>.cu): both ksw_extend2 kernels, the four
+# kernels of the seed program's loops and the LF walk of SA lookup
 KERNELS = ("ksw_extend", "ksw_extend16", "seed_p1p3", "seed_fwd", "seed_bwd",
-           "seed_cohort")
+           "seed_cohort", "sa_walk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # setup.py's flags for the JAX package's copies of these extensions, plus

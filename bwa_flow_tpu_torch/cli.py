@@ -472,10 +472,10 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
                     golden.align_se(opt, fm, chunk, base, rg)
                 emit(chunk)
         else:
-            from .ops import extend_cuda, smem_cuda
+            from .ops import extend_cuda, fm_cuda, smem_cuda
             from .pipeline.dataflow import AlignPipeline
             n0 = (extend_cuda.n_launches, extend_cuda.n_launches16,
-                  dict(smem_cuda.n_launches))
+                  dict(smem_cuda.n_launches), dict(fm_cuda.n_launches))
             pipe = AlignPipeline(opt, fm, paired=paired,
                                  n_workers=max(0, args.n_threads - 1),
                                  rg_id=rg, pes0=pes0,
@@ -497,8 +497,10 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
                   f"{extend_cuda.n_launches16 - n0[1]}", file=sys.stderr)
             st = pipe.ba.stats
             print("[M::mem] seed kernel launches: " + ", ".join(
-                f"{k} {smem_cuda.n_launches[k] - n0[2][k]}"
-                for k in smem_cuda.KERNELS) + "; next batch enqueued by "
+                [f"{k} {smem_cuda.n_launches[k] - n0[2][k]}"
+                 for k in smem_cuda.KERNELS]
+                + [f"{k} {fm_cuda.n_launches[k] - n0[3][k]}"
+                   for k in fm_cuda.KERNELS]) + "; next batch enqueued by "
                 + ", ".join(f"{h} {st[f'enqueue_{h}']}" for h in (
                     "post_redo", "post_dispatch", "late"))
                 + f"; downgraded batches {st['seed_downgrades']}",

@@ -1,12 +1,14 @@
 // FM-index primitives of the seed machines (seed_p1p3.cu, seed_fwd.cu,
-// seed_bwd.cu) for one thread on the card: the one-symbol probe (the row
-// of one symbol of bwt_extend), whole in one thread (seed_bwd.cu) or
-// split over a quad of threads (seed_quad.cuh: seed_p1p3.cu,
-// seed_fwd.cu), and the single-base start interval.
+// seed_bwd.cu) and the LF walk (sa_walk.cu) for one thread on the card:
+// the one-symbol probe (the row of one symbol of bwt_extend), whole in
+// one thread (seed_bwd.cu) or split over a quad of threads
+// (seed_quad.cuh: seed_p1p3.cu, seed_fwd.cu), the single-base start
+// interval, and one LF step.
 //
 // Each is the per-lane form of the plain PyTorch version in
-// bwa_flow_tpu_torch/ops/fm_torch.py (occ4_batch, set_intv_batch) and
-// ops/smem_torch.py (bwt_extend_dir_batch, _take_row), with the same
+// bwa_flow_tpu_torch/ops/fm_torch.py (occ4_batch, set_intv_batch,
+// _inv_psi_batch) and ops/smem_torch.py (bwt_extend_dir_batch,
+// _take_row), with the same
 // clamps and corner cases, so every value is equal: occ at k = -1 is 0,
 // at k = seq_len the column totals of L2; a probe at or past `primary`
 // reads the row one lower; the backward-derived coordinate gains one when
@@ -31,8 +33,8 @@
 //
 // The header needs nothing of CUDA beyond __device__, __forceinline__,
 // __ldg, __popc, __funnelshift_rc and int4, so
-// tests/test_torch_seed_fm_host.py compiles it with the host's c++ under
-// a stand-in for those.
+// tests/test_torch_seed_fm_host.py and tests/test_torch_sa_walk_host.py
+// compile it with the host's c++ under a stand-in for those.
 
 #pragma once
 
@@ -197,6 +199,33 @@ struct FM {
                                           T& os) const {
     const Part<T> p = part<4>(is_back ? k : l, s, c, 0);
     finish(p, k, l, s, is_back, c, ok, ol, os);
+  }
+
+  // One LF step (bwa/bwt.c:53-59; fm_torch._inv_psi_batch) of row k in
+  // [0, seq_len]: L2[c] + occ(k, c) for the BWT symbol c at k, and 0 at
+  // k = primary. For k != primary the symbol's position k - (k > primary)
+  // is the occ row kk = k - (k >= primary), so ONE row gives both c and
+  // occ: the row's count of c plus the c among its first kk % 64 + 1
+  // symbols (k = seq_len counts the last row whole). Both halves of the
+  // row are loaded before either is used, and c picks its word, count
+  // and L2 entry by selects, so no branch and no stack slot stands
+  // between the loads and the result. Only the count of c is used of
+  // count_row (its low byte: at most 64), so the count of the symbols
+  // above c is dead code.
+  __device__ __forceinline__ T lf(T k) const {
+    T kk = k - (k >= primary ? (T)1 : (T)0);
+    kk = kk < 0 ? (T)0 : (kk > seq_len - 1 ? seq_len - 1 : kk);
+    const int4* r = rows + 2 * (kk >> 6);   // kk >= 0: a shift divides
+    const int4 cnt = __ldg(r);
+    const int4 w = __ldg(r + 1);
+    const int off = (int)(kk & 63);
+    const unsigned word = pick4(off >> 4, (unsigned)w.x, (unsigned)w.y,
+                                (unsigned)w.z, (unsigned)w.w);
+    const int c = (int)((word >> (2 * (15 - (off & 15)))) & 3u);
+    const T v = pick4(c, L2[0], L2[1], L2[2], L2[3]) +
+                (T)pick4(c, cnt.x, cnt.y, cnt.z, cnt.w) +
+                (T)(count_row(w, c, off + 1) & 0xFFu);
+    return k == primary ? (T)0 : v;
   }
 };
 

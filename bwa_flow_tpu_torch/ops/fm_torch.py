@@ -9,7 +9,9 @@ batch of probes:
   - bwt_extend     = two all-symbol probes (k-1, k-1+s) + the
     bidirectional chain (bwa/bwt.c:262-275)
   - sa lookup      = a dense-SA gather, or a batched LF walk to a sampled
-    row with an iteration budget and an overflow mask (bwa/bwt.c:86-96)
+    row with an iteration budget and an overflow mask (bwa/bwt.c:86-96);
+    on a card each walk is one launch of the sa_walk kernel
+    (ops/fm_cuda.py, csrc/sa_walk.cu), on the CPU its plain version
 
 torch has no unsigned 32-bit shifts or popcount: the packed words widen
 to int64 (masked to 32 bits) and a SWAR popcount counts the slots.
@@ -18,7 +20,9 @@ genome; the dtype of the probe tensor and of ``L2`` carries through.
 
 Every read of the device from the host goes through a `fetch` argument
 (to_host by default), so the batch aligner can put its hang watchdog
-(pipeline/batch.py, BatchAligner.fetch) in front of each.
+(pipeline/batch.py, BatchAligner.fetch) in front of each. On a card
+sa_batch reads nothing: only the plain walk on the CPU reads its stop
+condition.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from ..index.fmindex import BLOCK, FMIndex
+from . import fm_cuda
 
 _M32 = 0xFFFFFFFF
 _PAIR = 0x55555555
@@ -306,17 +311,48 @@ def _inv_psi_batch(dfm: DeviceFM, k: torch.Tensor) -> torch.Tensor:
     return torch.where(k == dfm.primary, 0, lf)
 
 
-def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8,
-             fetch=to_host):
-    """T LF steps over every lane; dead lanes (sampled rows) hold. Stops
-    early once every lane is dead (read with `fetch` every `check` steps;
-    the remaining steps would change nothing)."""
+def _lf_walk_plain(dfm: DeviceFM, mask: int, kk, steps, T: int,
+                   check: int = 8, fetch=to_host, live=None):
+    """The plain version of the sa_walk kernel: T LF steps over every
+    lane; dead lanes (sampled rows) hold, and so do the slots at or past
+    `live` (a pool's padding; an int32 [1] tensor, or None for every
+    lane). Stops early once every lane is dead (read with `fetch` every
+    `check` steps; the remaining steps would change nothing). Returns
+    new tensors."""
+    lanes = None if live is None else \
+        torch.arange(kk.shape[0], device=kk.device) < live
     for it in range(T):
-        if it % check == 0 and not fetch(((kk & mask) != 0).any()):
+        walking = (kk & mask) != 0
+        if lanes is not None:
+            walking = walking & lanes
+        if it % check == 0 and not fetch(walking.any()):
             break
-        live = (kk & mask) != 0
-        kk = torch.where(live, _inv_psi_batch(dfm, kk), kk)
-        steps = steps + live.to(steps.dtype)
+        kk = torch.where(walking, _inv_psi_batch(dfm, kk), kk)
+        steps = steps + walking.to(steps.dtype)
+    return kk, steps
+
+
+def _on_card(t: torch.Tensor, who: str) -> bool:
+    """True for a CUDA tensor (its kernel runs), False for a CPU one (the
+    plain version runs); any other device raises. The dispatch of the LF
+    walk here and of the seed machines' wrappers in smem_torch."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{who}: tensors on {t.device}: expected cuda (the "
+                     "kernel) or cpu (the plain version)")
+
+
+def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8,
+             fetch=to_host, live=None):
+    """_lf_walk_plain's walk: on CUDA tensors one launch of the sa_walk
+    kernel, which updates kk and steps IN PLACE and reads nothing from
+    the card (check and fetch serve only the plain version); on CPU
+    tensors the plain version. Returns (kk, steps)."""
+    if not _on_card(kk, "_lf_walk"):
+        return _lf_walk_plain(dfm, mask, kk, steps, T, check, fetch, live)
+    fm_cuda.lf_walk(dfm, mask, kk, steps, T, live)
     return kk, steps
 
 
@@ -329,41 +365,57 @@ def sa_batch(dfm: DeviceFM, k: torch.Tensor, max_iters: int = 256,
     over all lanes, the survivors compacted into a B/4 pool for 4*intv
     more, then a B/16 pool walks to max_iters. Returns (sa int64[B],
     overflow bool[B]); overflow lanes (budget or pool exhausted) are
-    redone by the caller on the host. The walk's stop reads go through
-    `fetch`."""
+    redone by the caller on the host. On a card the walks are three
+    launches of the sa_walk kernel (one unphased), each pool's live
+    count stays on the card, and nothing here reads the card; on the
+    CPU the plain walk reads its stop condition through `fetch`."""
     if dfm.sa_dense is not None:
         idx = k.clamp(0, dfm.sa_dense.shape[0] - 1).long()
         return (dfm.sa_dense[idx].to(torch.int64),
                 torch.zeros(k.shape, dtype=torch.bool, device=k.device))
     mask = dfm.sa_intv - 1
     B = k.shape[0]
-    kk, steps = k, torch.zeros_like(k)
     if intv > 0 and B >= 64:
+        # the caller's rows copied (the kernel walks in place), with one
+        # more slot: row 0, a sampled row, so a dead lane. It is the sink
+        # of the pools' padding slots, which the walks leave as they are
+        # and the scatters back write there, so no padding slot lands on
+        # a lane (a copy of lane 0 that was not walked would undo lane
+        # 0's walk)
+        kk = torch.cat([k, k.new_zeros(1)])
+        steps = torch.zeros_like(kk)
         kk, steps = _lf_walk(dfm, mask, kk, steps, 2 * intv, fetch=fetch)
 
-        def compact_pool(kk, CAP):
-            live = (kk & mask) != 0
+        def compact_pool(CAP):
+            """(src, n): a pool of CAP slots holding the first CAP live
+            lanes in lane order and the sink B in every other slot, and
+            their count n = min(live, CAP) as an int32 [1] tensor."""
+            live = (kk[:B] & mask) != 0
             l32 = live.to(torch.int32)
             rank = torch.cumsum(l32, 0, dtype=torch.int32) - l32
             dst = torch.where(live & (rank < CAP), rank, CAP).long()
-            src = torch.zeros(CAP + 1, dtype=torch.int64, device=k.device)
+            src = torch.full((CAP + 1,), B, dtype=torch.int64,
+                             device=k.device)
             src[dst] = torch.arange(B, dtype=torch.int64, device=k.device)
-            return src[:CAP]
+            n = l32.sum(dtype=torch.int32).clamp(max=CAP).reshape(1)
+            return src[:CAP], n
 
         # survivors (~e^-2) -> B/4 pool, 4*intv fixed steps
-        src = compact_pool(kk, B // 4)
+        src, n = compact_pool(B // 4)
         kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], 4 * intv,
-                          fetch=fetch)
-        kk = kk.index_put((src,), kp)
-        steps = steps.index_put((src,), sp)
+                          fetch=fetch, live=n)
+        kk[src] = kp
+        steps[src] = sp
         # stragglers (~e^-6) -> B/16 pool, walk to the budget
-        src = compact_pool(kk, B // 16)
+        src, n = compact_pool(B // 16)
         kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], max_iters, 1,
-                          fetch)
-        kk = kk.index_put((src,), kp)
-        steps = steps.index_put((src,), sp)
+                          fetch, live=n)
+        kk[src] = kp
+        steps[src] = sp
+        kk, steps = kk[:B], steps[:B]
     else:
-        kk, steps = _lf_walk(dfm, mask, kk, steps, max_iters, 1, fetch)
+        kk, steps = _lf_walk(dfm, mask, k.clone(), torch.zeros_like(k),
+                             max_iters, 1, fetch)
     # pool-dropped lanes never finish: flagged as overflow
     overflow = (kk & mask) != 0
     idx = (kk // dfm.sa_intv).clamp(0, dfm.sa.shape[0] - 1).long()

@@ -23,12 +23,14 @@ big-budget device call, then by the host golden.
 
 The three machines and cohort emission (the XLA loops of smem_jax) are
 hand-written CUDA kernels on the card (ops/smem_cuda.py, csrc/seed_*.cu),
-each machine lane run to its end by one thread or a quad, so on the card
-the seed program of an index with a dense SA reads nothing from the
-device until its caller fetches the result. Each kernel's plain version
-stays here (_p1p3_machine, _fwd_scan_machine, _bwd_walk_machine,
-_cohort_emit), and the dispatching wrappers (p1p3_machine,
-fwd_scan_machine, bwd_walk_machine, cohort_emit) take it only for
+each machine lane run to its end by one thread or a quad, and the fused
+SA walk of an index without a dense SA is the sa_walk kernel
+(fm_torch.sa_batch, ops/fm_cuda.py), so on the card the seed program
+reads nothing from the device until its caller fetches the result. Each
+kernel's plain version stays here (_p1p3_machine, _fwd_scan_machine,
+_bwd_walk_machine, _cohort_emit), and the dispatching wrappers
+(p1p3_machine, fwd_scan_machine, bwd_walk_machine, cohort_emit; their
+device test is fm_torch._on_card) take it only for
 tensors on the CPU. A plain machine is a Python loop over torch steps
 whose stop condition is read from the device every CHECK_EVERY steps (a
 step on finished lanes changes nothing, so the extra steps are no-ops).
@@ -47,8 +49,8 @@ from ..index.fmindex import FMIndex
 from ..utils.opts import MemOpt
 from . import smem as smem_golden
 from . import smem_cuda
-from .fm_torch import (DeviceFM, occ4_batch, sa_batch, set_intv_batch,
-                       to_host)
+from .fm_torch import (DeviceFM, _on_card, occ4_batch, sa_batch,
+                       set_intv_batch, to_host)
 
 I32 = torch.int32
 I64 = torch.int64
@@ -449,17 +451,6 @@ def _cohort_emit(r, brk_g, valid, NB: int):
         m_c = torch.where(vj, m_new, m_c)
         g_c = torch.where(vj, gj, g_c)
     return m_out
-
-
-def _on_card(t: torch.Tensor, who: str) -> bool:
-    """True for a CUDA tensor (its kernel runs), False for a CPU one (the
-    plain version runs); any other device raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{who}: tensors on {t.device}: expected cuda (the "
-                     "kernel) or cpu (the plain version)")
 
 
 def _copies(st: dict) -> dict:
@@ -908,11 +899,12 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
                   fetch=to_host) -> dict:
     """Queue the device SMEM machine for a batch on the current stream;
     returns a handle for seed_collect_batch, whose "event" marks the
-    program's end on a card. With a dense SA nothing here reads the
-    card (the machines are kernels); without one the fused LF walk
-    reads its stop condition through `fetch`. The padded read batch
-    (device tensors) stays in the handle so the extension stage can
-    address it."""
+    program's end on a card. On a card nothing here reads it: the
+    machines are kernels, and so is the fused LF walk of an index
+    without a dense SA (its pools' live counts stay on the card); on
+    the CPU the plain versions read their stop conditions through
+    `fetch`. The padded read batch (device tensors) stays in the handle
+    so the extension stage can address it."""
     if padded is not None:
         q_dev, qlen_dev = padded
     else:

@@ -470,10 +470,12 @@ class BatchAligner:
         the batch is small), uploads each padded shard to its device and
         runs the seed program on it, one thread a shard, each on its
         shard's seed stream; the handle feeds seeds_collect. On a card
-        with a dense SA nothing here waits for the device: the uploads do
-        not (upload), and the seed program's kernels run each machine to
-        its end on the card, so this returns once the program is queued,
-        and its end event (smem_torch._mark) is in each shard's handle."""
+        nothing here waits for the device: the uploads do not (upload),
+        the seed program's kernels run each machine to its end on the
+        card, and on an index without a dense SA its fused LF walk is a
+        kernel too (fm_torch.sa_batch), so this returns once the program
+        is queued, and its end event (smem_torch._mark) is in each
+        shard's handle."""
         n = len(seqs)
         per = -(-max(n, 1) // len(self.shards))
         bounds = [(i, min(i + per, n)) for i in range(0, n, per)] or [(0, 0)]

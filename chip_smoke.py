@@ -16,13 +16,13 @@ Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
      the torch/CUDA versions and the host's CPU count, and builds every
      CUDA kernel of the main paths from bwa_flow_tpu_torch/csrc/ (both
-     ksw_extend2 kernels and the four seed kernels) and
+     ksw_extend2 kernels, the four seed kernels and the LF walk) and
      the six host libraries from csrc/host/ (_chain, _region, _wave,
      _native, _markdup, _bam; one nvcc or c++ per source, all started
      together, each timed); prints each kernel's registers, shared
      memory, stack frame and spills as ptxas reports them, and fails if
      a kernel of a seed kernel redesigned for Hopper (REDESIGNED: all
-     four) has a stack frame.
+     four) or of the LF walk has a stack frame.
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes: the int32 and the int16 ksw_extend2 on 4096
      right-extension tasks of 151 bp reads (qmax=160, tmax=512, some
@@ -99,9 +99,10 @@ Phases:
      fail, on the pure-Python route (its injections target its wave
      buffer; phase 10 injects on the native route): the first 2048 of phase 3's reads on the wide int64 seed
      machine (FORCE_WIDE) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
-     the fused LF walk), records equal to the default path's in the same
-     phase; -I 400,40 on phase 4's pairs (int16 kernel): 64 pairs equal
-     to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
+     the fused LF walk, which must have launched the sa_walk kernel and
+     run no plain walk on the card), records equal to the default path's
+     in the same phase; -I 400,40 on phase 4's pairs (int16 kernel): 64
+     pairs equal to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
      phase 3's reads (SAM == full.sam, one validation a batch), the same
      run with the watchdog off (--device-timeout 0) and on, in turns (its
      cost, beside phase 3, and where it goes: watched waits a batch, the
@@ -148,8 +149,9 @@ Phases:
      _bam.sam_to_bam in a subprocess, which must exit 1 with ValueError,
      not die by a signal; (e) phase 3's index loaded with RESAMPLE_MIN =
      0: sa_intv 32 -> 4, the table every 4th entry of the full SA, then
-     phase 9's reads with BWA_TPU_DENSE_SA_MAX=0 on the LF walk over it,
-     records equal to phase 9's default run.
+     phase 9's reads with BWA_TPU_DENSE_SA_MAX=0 on the LF walk over it
+     (the sa_walk kernel, no plain walk on the card), records equal to
+     phase 9's default run.
  12. the seed program's four kernels (seed_p1p3, seed_fwd, seed_bwd,
      seed_cohort) against their plain versions on the card, after phase
      4: collect_intv_device on phase 3's first 4096 reads and on 2048 of
@@ -180,6 +182,37 @@ Phases:
      BatchAligner's seeds_dispatch of the SE batch must upload its reads
      without a wait, make no fetch, wait or put, and torch's sync debug
      mode must report no synchronising call in the whole dispatch.
+ 14. the LF walk (csrc/sa_walk.cu) on the card, after phase 11: (a)
+     phase 3's index with its dense-SA cache unread, _densify_sa on the
+     kernel and on the plain walk on the card, both timed, both equal to
+     phase 3's cache; (b) a genome of BIG_LEN bp (D. melanogaster's dm6
+     length, made by make_genome from a seed), whose BWT has more than
+     2^28 rows: no dense SA, the SA re-sampled 32 -> 4 at load, 4x-deep
+     pass-2 pools. `index` through the CLI (SA-IS split out); a load
+     that prints the re-sampling's time; BIG_READS SE reads and
+     BIG_PAIRS FR pairs through the CLI's default route (native, host
+     mode, -t 8, batches of 4096): one primary record a read, >= 95%
+     mapped, >= 90% of pairs proper, the walk kernel launched and no
+     plain walk on the card, spans and the enqueue hooks printed; a
+     BIG_SUB-read and a BIG_SUB-pair subset equal to --no-device apart
+     from @PG. Every sa_batch call of the SE run (recorded through each
+     module that imported it) runs again on the kernel and on the plain
+     walk on the card: each launch's rows and step counts, the values
+     and the overflow flags equal (tolerance 0). Each launch of the seed
+     program's walk, and of one probe chunk, is timed through the
+     launcher with CUDA events after an L2 flush, the stream held,
+     beside its lanes (slots, live slots walking, dead on entry), its
+     bound (the larger of: 32 bytes a distinct fm_blocks row its chains
+     touch, each walking lane's row and step count read and written,
+     one read of a lane dead on entry, over 3.35 TB/s; OPS_PER_LF int32
+     operations a distinct row stepped from over 16.7e12/s; walk_work),
+     its chain floor (the longest lane's steps x the dependent-load
+     latency over a buffer of fm_blocks' size, CHASE_CU) and an empty
+     kernel launched with the same grid; a launch measured below its
+     bound fails the phase. Then BatchAligner.resolve_sa_flat on a
+     4096-read batch's own intervals with no seed handle (every probe
+     walked): equal to the seed program's fused values and to the plain
+     walk on the card; and phase 12's dispatch check on this index.
  13. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
@@ -191,8 +224,11 @@ Phases:
      native host-mode SE run (the CLI's default), their ms, plain_ms and
      bound_ms phase 12's at the SE batch, with its chain floor, the
      latency under it, each kernel's ptxas report and what its redesign
-     for Hopper changed ("redesigned"); the line also holds the seed
-     program's seconds a batch on each main path.
+     for Hopper changed ("redesigned"); the LF walk's launches are those
+     of phase 14's SE run, its ms, plain_ms, bound_ms, chain floor and
+     launch cost a launch's mean over that run's seed-walk launches; the
+     line also holds the seed program's seconds a batch on each main
+     path and phase 14's index and mapping numbers.
 
 Exits non-zero without a CUDA device. Imports nothing of JAX or of the
 JAX package. Work files go to build/chip_smoke/ in the checkout.
@@ -238,6 +274,7 @@ B_EXT = 4096
 # rate (an FMA counts 2): 132 SMs x 64 x 1.98 GHz = 16.7e12 int32 op/s
 HBM_BPS = 3.35e12
 INT32_OPS = 16.7e12
+L2_BYTES = 50 << 20          # the H100's L2 cache
 # Operations of one DP cell, from the recurrence (bwa ksw.c:409-422) at
 # the fewest instructions Hopper has for it: M = H(i-1, j-1) + score,
 # zero where H(i-1, j-1) is 0 (2); H = max(M, E, F) (1, __vimax3); the
@@ -351,9 +388,10 @@ def cut_reads(genome: np.ndarray, n: int, length: int, seed: int) -> list:
     return out
 
 
-def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int):
+def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int,
+                 n_sub: int = N_SUB):
     """ref.fa, reads.fq (n_reads x 151 bp, 1% substitutions, both
-    strands) and sub.fq (the first N_SUB reads)."""
+    strands) and sub.fq (the first n_sub reads)."""
     bases = np.frombuffer(b"ACGT", np.uint8)
     text = bases[genome].tobytes().decode()
     with open(work / "ref.fa", "w") as f:
@@ -364,14 +402,14 @@ def write_inputs(work: Path, genome: np.ndarray, n_reads: int, seed: int):
             for i, r in enumerate(cut_reads(genome, n_reads, READ_LEN,
                                             seed))]
     (work / "reads.fq").write_text("".join(recs))
-    (work / "sub.fq").write_text("".join(recs[:N_SUB]))
+    (work / "sub.fq").write_text("".join(recs[:n_sub]))
 
 
 def write_pe_inputs(work: Path, genome: np.ndarray, n_pairs: int,
-                    seed: int):
+                    seed: int, n_sub: int = N_SUB):
     """r1.fq/r2.fq: FR pairs of 151 bp reads from fragments of N(400,
     40) bp on either strand, 1% substitutions; sub1.fq/sub2.fq hold the
-    first N_SUB pairs."""
+    first n_sub pairs."""
     bases = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(seed)
     comp = np.array([3, 2, 1, 0], np.uint8)
@@ -391,7 +429,7 @@ def write_pe_inputs(work: Path, genome: np.ndarray, n_pairs: int,
                            f"\n+\n{'I' * READ_LEN}\n")
     for k in range(2):
         (work / f"r{k + 1}.fq").write_text("".join(recs[k]))
-        (work / f"sub{k + 1}.fq").write_text("".join(recs[k][:N_SUB]))
+        (work / f"sub{k + 1}.fq").write_text("".join(recs[k][:n_sub]))
 
 
 # ------------------------------------------------------------ kernels
@@ -1635,7 +1673,7 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     import torch
 
     from bwa_flow_tpu_torch import cli
-    from bwa_flow_tpu_torch.ops import smem_torch
+    from bwa_flow_tpu_torch.ops import fm_cuda, smem_torch
 
     ref = str(work / "ref.fa")
     fq = str(_head_fastq(work / "reads.fq", work / "p9_reads.fq", P9_READS))
@@ -1659,16 +1697,21 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
         raise SystemExit("the default run's seed machines were not int32, "
                          "or the wide run's not int64")
     os.environ["BWA_TPU_DENSE_SA_MAX"] = "0"
+    fm_cuda.n_launches["sa_walk"] = 0
     try:
-        with timed_calls(smem_torch, "sa_batch") as walks:
+        with timed_calls(smem_torch, "sa_batch") as walks, \
+                plain_walk_calls() as plain:
             runs["no_dense_sa"] = _cli_run("no dense SA", base + [
                 "-o", str(work / "p9_nodense.sam"), ref, fq])
     finally:
         del os.environ["BWA_TPU_DENSE_SA_MAX"]
+    runs["no_dense_sa"]["walk_launches"] = fm_cuda.n_launches["sa_walk"]
     print(f"[p9] no dense SA: the seed program's fused LF walk ran "
           f"{walks['calls']} times, {walks['s']:.3f} s")
     if not walks["calls"]:
         raise SystemExit("the no-dense-SA run took no fused LF walk")
+    walk_launch_check("p9 no dense SA", fm_cuda.n_launches["sa_walk"],
+                      plain)
     want = _body(work / "p9_default.sam")
     for tag, name in (("wide", "p9_wide.sam"),
                       ("no_dense_sa", "p9_nodense.sam")):
@@ -2023,16 +2066,19 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
 # ----------------------------------------------------------- phase 10
 
 def _native_run(tag: str, argv: list, extend16: bool = False,
-                devices=None, capture: bool = False) -> dict:
+                devices=None, capture: bool = False, n: int | None = None,
+                phase: str = "p10") -> dict:
     """One in-process `mem` run on the native route (the CLI's own, or
-    _mem over `devices`), with the kernels' counts and the spans set to
-    0 just before it and CUDA events around every kernel call; prints
-    and returns its wall s, rate, spans, the native driver's counters,
-    and each kernel's launches and device ms. With capture, each kernel
-    is then held against its plain version at the run's shapes
-    (native_shapes), under "shapes"."""
+    _mem over `devices`) of n reads or pairs (N_READS or N_PAIRS by
+    default), with the kernels' counts and the spans set to 0 just
+    before it and CUDA events around every kernel call; prints under
+    [phase] and returns its wall s, rate, spans, the native driver's
+    counters, and each kernel's launches and device ms (the LF walk's
+    under "walk_launches"). With capture, each kernel is then held
+    against its plain version at the run's shapes (native_shapes),
+    under "shapes"."""
     from bwa_flow_tpu_torch import cli
-    from bwa_flow_tpu_torch.ops import extend_cuda, smem_cuda
+    from bwa_flow_tpu_torch.ops import extend_cuda, fm_cuda, smem_cuda
     from bwa_flow_tpu_torch.utils.trace import GLOBAL as tracer
 
     if extend16:
@@ -2041,6 +2087,7 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
         os.environ.pop("BWA_TPU_EXTEND16", None)
     extend_cuda.n_launches = extend_cuda.n_launches16 = 0
     smem_cuda.n_launches.update(dict.fromkeys(smem_cuda.KERNELS, 0))
+    fm_cuda.n_launches.update(dict.fromkeys(fm_cuda.KERNELS, 0))
     tracer.totals.clear()
     tracer.counts.clear()
     try:
@@ -2057,29 +2104,31 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
     finally:
         os.environ.pop("BWA_TPU_EXTEND16", None)
     seed_launches = dict(smem_cuda.n_launches)
-    seed_launch_check(f"p10 {tag}", seed_launches, plain)
-    path = launch_times(log, f"p10 {tag}")
-    mdup = markdup_summary(f"p10 {tag}", mds, "NativeMarkDupStage")
+    walk_launches = fm_cuda.n_launches["sa_walk"]
+    seed_launch_check(f"{phase} {tag}", seed_launches, plain)
+    path = launch_times(log, f"{phase} {tag}")
+    mdup = markdup_summary(f"{phase} {tag}", mds, "NativeMarkDupStage")
     st = dict(cli.last_run_stats)
     spans = {k: round(v, 3) for k, v in sorted(tracer.totals.items())}
     pairs = len([a for a in argv if a.endswith(".fq")]) == 2
-    n = N_PAIRS if pairs else N_READS
+    n = n or (N_PAIRS if pairs else N_READS)
     out = dict(wall_s=dt, rate=n / dt, launches=extend_cuda.n_launches,
                launches16=extend_cuda.n_launches16, stats=st, spans=spans,
-               seed_launches=seed_launches,
+               seed_launches=seed_launches, walk_launches=walk_launches,
                seed_s_per_batch=st["seed_s"] / max(1, st["seed_batches"]),
                device_ms={k: v["device_ms"] for k, v in path.items()},
                markdup=mdup)
     keys = ("waves", "ext_tasks_device", "ext_tasks_host", "host_oversize_q",
             "host_oversize_t", "host_sched", "band_retries")
-    print(f"[p10] {tag}: {dt:.2f} s, {n / dt:.1f} "
+    print(f"[{phase}] {tag}: {dt:.2f} s, {n / dt:.1f} "
           f"{'pairs' if pairs else 'reads'}/s (index load included); "
           f"{', '.join(f'{k} {st[k]}' for k in keys)}; ksw_extend2 "
           f"launches {out['launches']}, ksw_extend2_i16 "
-          f"{out['launches16']}; device ms {out['device_ms']}")
-    print(f"[p10] {tag} spans (host wall clock, s): {json.dumps(spans)}")
-    print(f"[p10] {tag}: seed {out['seed_s_per_batch']:.3f} s/batch over "
-          f"{st['seed_batches']} batches; {enqueue_summary(st)}")
+          f"{out['launches16']}, sa_walk {walk_launches}; device ms "
+          f"{out['device_ms']}")
+    print(f"[{phase}] {tag} spans (host wall clock, s): {json.dumps(spans)}")
+    print(f"[{phase}] {tag}: seed {out['seed_s_per_batch']:.3f} s/batch "
+          f"over {st['seed_batches']} batches; {enqueue_summary(st)}")
     if capture:
         out["shapes"] = native_shapes(log)
     return out
@@ -2362,7 +2411,7 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
     from bwa_flow_tpu_torch.dedup import markdup
     from bwa_flow_tpu_torch.index import build, io as idx_io
     from bwa_flow_tpu_torch.index.suffix import suffix_array
-    from bwa_flow_tpu_torch.ops import ksw, smem_torch
+    from bwa_flow_tpu_torch.ops import fm_cuda, ksw, smem_torch
     from bwa_flow_tpu_torch.pipeline import sort
     from bwa_flow_tpu_torch.utils.opts import MemOpt
 
@@ -2506,8 +2555,10 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
               f"4 in {t_load:.3f} s (os.cpu_count() {os.cpu_count()} "
               f"threads), table == SA[::4] ({len(want)} entries)")
         fq = str(work / "p9_reads.fq")
+        fm_cuda.n_launches["sa_walk"] = 0
         with _recording(smem_torch, "sa_batch",
-                        lambda a: int(a[0].sa_intv)) as intvs:
+                        lambda a: int(a[0].sa_intv)) as intvs, \
+                plain_walk_calls() as plain:
             run = _cli_run("(e) resampled SA, LF walk", [
                 "-t", "8", "--batch-reads", str(BATCH), "--device", device,
                 "-o", str(work / "p11_resampled.sam"), ref, fq], "p11")
@@ -2515,6 +2566,8 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
         idx_io.RESAMPLE_MIN = 1 << 28
         del os.environ["BWA_TPU_DENSE_SA_MAX"]
         cache.unlink(missing_ok=True)
+    walk_launches = fm_cuda.n_launches["sa_walk"]
+    walk_launch_check("p11 (e)", walk_launches, plain)
     if set(intvs) != {4}:
         raise SystemExit(f"phase 11 (e): the LF walks ran at intervals "
                          f"{set(intvs)}, not 4")
@@ -2524,7 +2577,7 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
     print(f"[p11] (e) {P9_READS} reads on the LF walk over the resampled "
           f"table ({len(intvs)} walks): SAM == phase 9's default run")
     res["resample"] = dict(load_s=t_load, walks=len(intvs),
-                           mem_s=run["wall_s"])
+                           mem_s=run["wall_s"], walk_launches=walk_launches)
     return res
 
 
@@ -2791,8 +2844,10 @@ def _seed_work(name: str, args: list, acc: dict, want) -> tuple:
 
 # a single thread's chain of dependent loads through the read-only cache
 # over a random cyclic permutation of 32-byte sectors (one FM row each):
-# the card's latency of a dependent L2 hit, the wall a seed lane's chain
-# of FM row gathers stands against
+# the card's latency of a dependent load, the wall a lane's chain of FM
+# row gathers stands against (an L2 hit over a buffer the L2 holds, an
+# HBM read over a larger one); and a kernel that does nothing, whose
+# launches measure what a launch itself costs on the card
 CHASE_CU = r"""
 #include <cuda_runtime.h>
 __global__ void chase(const unsigned* __restrict__ next, long long hops,
@@ -2801,39 +2856,57 @@ __global__ void chase(const unsigned* __restrict__ next, long long hops,
   for (long long h = 0; h < hops; ++h) p = __ldg(next + p);
   *out = p;
 }
+__global__ void empty_kernel() {}
 extern "C" int chase_launch(const void* next, long long hops, void* out,
                             void* stream) {
   chase<<<1, 1, 0, (cudaStream_t)stream>>>((const unsigned*)next, hops,
                                            (unsigned*)out);
   return (int)cudaGetLastError();
 }
+extern "C" int empty_launch(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
 """
 CHASE_HOPS = 200_000
 CHASE_SEED = 0xC4A5E
+_CHASE: dict = {}
 
 
-def l2_latency_ns(nbytes: int, device) -> dict:
-    """ns a dependent load over a buffer of nbytes (the index's size),
-    warm in L2: CHASE_CU built with the kernels' nvcc flags, one pass
-    over every sector first, then CHASE_HOPS hops timed with CUDA
-    events."""
+def _chase_lib():
+    """CHASE_CU built with the kernels' nvcc flags (once a run) and
+    loaded."""
     import ctypes
 
+    from bwa_flow_tpu_torch import _build
+    if "lib" not in _CHASE:
+        src, lib = WORK / "chase.cu", WORK / "libchase.so"
+        src.write_text(CHASE_CU)
+        r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                            str(lib), str(src)], capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            raise SystemExit(f"nvcc failed for the pointer chase:\n"
+                             f"{r.stdout}{r.stderr}")
+        cdll = ctypes.CDLL(str(lib))
+        cdll.chase_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                      ctypes.c_void_p, ctypes.c_void_p]
+        cdll.chase_launch.restype = ctypes.c_int
+        cdll.empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]
+        cdll.empty_launch.restype = ctypes.c_int
+        _CHASE["lib"] = cdll
+    return _CHASE["lib"]
+
+
+def l2_latency_ns(nbytes: int, device, tag: str = "p12") -> dict:
+    """ns a dependent load over a buffer of nbytes (the index's size):
+    CHASE_CU's chase, one pass over every sector first (the buffer warm
+    in the L2 where it fits), then CHASE_HOPS hops timed with CUDA
+    events."""
     import torch
 
-    from bwa_flow_tpu_torch import _build
-    src, lib = WORK / "chase.cu", WORK / "libchase.so"
-    src.write_text(CHASE_CU)
-    r = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-                        str(src)], capture_output=True, text=True,
-                       timeout=300)
-    if r.returncode != 0:
-        raise SystemExit(f"nvcc failed for the pointer chase:\n{r.stdout}"
-                         f"{r.stderr}")
-    fn = ctypes.CDLL(str(lib)).chase_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _chase_lib().chase_launch
     n = max(2, nbytes // 32)
     order = np.random.default_rng(CHASE_SEED).permutation(n)
     nxt = np.zeros(n * 8, np.int32)
@@ -2845,7 +2918,7 @@ def l2_latency_ns(nbytes: int, device) -> dict:
     def run(hops):
         if fn(buf.data_ptr(), hops, out.data_ptr(), stream) != 0:
             raise SystemExit("the pointer chase did not launch")
-    run(n)                                   # every sector into L2
+    run(n)                                   # every sector once
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -2853,9 +2926,10 @@ def l2_latency_ns(nbytes: int, device) -> dict:
     b.record()
     torch.cuda.synchronize()
     ns = a.elapsed_time(b) * 1e6 / CHASE_HOPS
-    print(f"[p12] dependent L2-hit latency: {ns:.1f} ns a load ({CHASE_HOPS}"
-          f" hops of one thread over {n} random 32-byte sectors, "
-          f"{n * 32} bytes, warm)")
+    where = "L2 hit" if n * 32 <= L2_BYTES else "load beyond the L2"
+    print(f"[{tag}] dependent {where} latency: {ns:.1f} ns a load "
+          f"({CHASE_HOPS} hops of one thread over {n} random 32-byte "
+          f"sectors, {n * 32} bytes, after one pass over all)")
     return dict(ns=ns, bytes=n * 32, hops=CHASE_HOPS)
 
 
@@ -3129,6 +3203,531 @@ def phase_seed_kernels(work: Path, genome: np.ndarray, device: str) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phase 14
+
+BIG_LEN = 143_726_002        # the length of D. melanogaster's dm6 assembly
+BIG_MIN_ROWS = 1 << 28       # its BWT must have more rows: no dense SA
+BIG_SEED = 0xD06
+BIG_READS = 8192             # single-end reads of the large genome ...
+BIG_PAIRS = 4096             # ... and FR pairs
+BIG_SUB = 256                # reads and pairs held to --no-device
+WALK_REPS = 5                # timed launches of each walk launch
+WALK_THREADS = 256           # threads a block of csrc/sa_walk.cu
+FLUSH_BYTES = 128 << 20      # written before each timed launch: evicts the L2
+HOLD_S = 0.05                # seconds the spin kernel holds the stream
+# int32 operations of one LF step: FM::lf (csrc/seed_fm.cuh) and a turn of
+# sawalk::walk_lane's loop (csrc/sa_walk.cuh), counted from the code at the
+# fewest Hopper instructions, int32 coordinates (the int64 view's wider
+# ops count the same, so the bound stays a lower one): the loop's test of
+# k & mask, its budget test, its counter and the step count (5); k's shift
+# past primary (2) and clamp (2); the row's index and address (3); the
+# offset in the row (1); the word at it, a shift and three compares and
+# selects (7); c, a mask, a subtraction, a shift, a shift and a mask (5);
+# L2[c] and the row's count of c, three compares and six selects (9);
+# count_row's count of c: c's pattern (1), per word an xnor, a shift, two
+# logic ops and a popcount (4 x 5) and its keep mask, a subtraction (none
+# for word 0), a max, a shift and a funnel shift (15), the four counts
+# summed (2) and their low byte (1); the sum (1); the select at primary
+# (2). The loads are not operations.
+OPS_PER_LF = 76
+
+
+def walk_trace(dfm, mask: int, kk, T: int, live=None) -> list:
+    """The plain walk's trace (fm_torch._lf_walk_plain's loop, on the
+    tensors' device): for each step, the rows of the lanes that take it
+    (live, below the live count), until every lane is dead or T steps."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import fm_torch
+    n = kk.numel()
+    lanes = torch.ones(n, dtype=torch.bool, device=kk.device) \
+        if live is None else torch.arange(n, device=kk.device) < live
+    out = []
+    for _ in range(T):
+        walking = lanes & ((kk & mask) != 0)
+        rows = kk[walking]
+        if not rows.numel():
+            break
+        out.append(rows)
+        kk = torch.where(walking, fm_torch._inv_psi_batch(dfm, kk), kk)
+    return out
+
+
+def walk_work(kk0, live, trace: list, mask: int, primary: int,
+              seq_len: int) -> dict:
+    """What one walk launch must do, for its bound: the slots launched
+    (kk0, their rows), the live slots (below the live count; None: all)
+    that walk and those dead on entry (padding slots count nothing); the
+    distinct fm_blocks rows the walking lanes' chains touch (trace:
+    walk_trace's); the distinct rows stepped from, each one LF step
+    (lanes on one chain, from one start or once a lane reaches another's
+    start, share their steps); the longest lane's steps. Bytes: 32 for
+    each distinct block row, each walking lane's row and step count read
+    and written, one read of each dead-on-entry lane's row; operations:
+    OPS_PER_LF a distinct row stepped from."""
+    import torch
+    t = kk0.element_size()
+    n = kk0.numel() if live is None else min(int(live), kk0.numel())
+    walking = int(((kk0[:n] & mask) != 0).sum())
+    dead = n - walking
+    if trace:
+        rows = torch.cat([r.long() for r in trace])
+        stepped = int(torch.unique(rows).numel())
+        blk = (rows - (rows >= primary).long()).clamp(0, seq_len - 1) >> 6
+        blocks = int(torch.unique(blk).numel())
+    else:
+        rows, stepped, blocks = [], 0, 0
+    return dict(slots=kk0.numel(), live=n, walking=walking,
+                dead_on_entry=dead, blocks=blocks, stepped_rows=stepped,
+                steps=len(rows), longest=len(trace),
+                bytes=32 * blocks + walking * 4 * t + dead * t,
+                ops=stepped * OPS_PER_LF)
+
+
+@contextlib.contextmanager
+def recorded_sa_batch():
+    """While the block runs, every call of fm_torch.sa_batch, through
+    whichever module of the port imported it, is recorded (the module,
+    the index, a copy of its rows, max_iters, intv); yields the list.
+    sa_batch runs unchanged inside."""
+    from bwa_flow_tpu_torch.ops import fm_torch
+    real = fm_torch.sa_batch
+    owners = [m for name, m in list(sys.modules.items())
+              if name.startswith("bwa_flow_tpu_torch")
+              and getattr(m, "sa_batch", None) is real]
+    log: list = []
+    for m in owners:
+        def rec(dfm, k, max_iters=256, intv=0, fetch=fm_torch.to_host,
+                _name=m.__name__):
+            log.append(dict(module=_name.rsplit(".", 1)[-1], dfm=dfm,
+                            k=k.clone(), max_iters=max_iters, intv=intv))
+            return real(dfm, k, max_iters, intv, fetch)
+        m.sa_batch = rec
+    try:
+        yield log
+    finally:
+        for m in owners:
+            m.sa_batch = real
+
+
+@contextlib.contextmanager
+def recorded_walks():
+    """While the block runs, every walk (fm_torch._lf_walk) is recorded
+    with copies of its inputs (rows, step counts, live count) and of
+    what it gives back (the kernel's in place, the plain version's
+    returned); yields the list."""
+    from bwa_flow_tpu_torch.ops import fm_torch
+    real = fm_torch._lf_walk
+    log: list = []
+
+    def rec(dfm, mask, kk, steps, T, check=8, fetch=fm_torch.to_host,
+            live=None):
+        r = dict(dfm=dfm, mask=mask, T=T, check=check, kk=kk.clone(),
+                 steps=steps.clone(),
+                 live=None if live is None else live.clone())
+        out = real(dfm, mask, kk, steps, T, check, fetch, live)
+        r["out"] = tuple(o.clone() for o in out)
+        log.append(r)
+        return out
+    fm_torch._lf_walk = rec
+    try:
+        yield log
+    finally:
+        fm_torch._lf_walk = real
+
+
+@contextlib.contextmanager
+def plain_walk():
+    """While the block runs, the walks take their plain version on the
+    card (the comparisons' reference)."""
+    from bwa_flow_tpu_torch.ops import fm_torch
+    real = fm_torch._on_card
+    fm_torch._on_card = lambda t, who: False
+    try:
+        yield
+    finally:
+        fm_torch._on_card = real
+
+
+@contextlib.contextmanager
+def plain_walk_calls():
+    """While the block runs, count the plain walks that run on a CUDA
+    tensor (a main path on the card must make none); yields {"cuda"}."""
+    from bwa_flow_tpu_torch.ops import fm_torch
+    real = fm_torch._lf_walk_plain
+    seen = {"cuda": 0}
+
+    def counted(dfm, mask, kk, *a, **k):
+        seen["cuda"] += kk.device.type == "cuda"
+        return real(dfm, mask, kk, *a, **k)
+    fm_torch._lf_walk_plain = counted
+    try:
+        yield seen
+    finally:
+        fm_torch._lf_walk_plain = real
+
+
+def walk_launch_check(tag: str, launches: int, plain: dict) -> None:
+    """Raise unless the LF-walk kernel launched in a run and no plain
+    walk ran on the card there."""
+    print(f"[{tag}] sa_walk launches {launches}; plain walks on the card "
+          f"{plain['cuda']}")
+    if launches <= 0 or plain["cuda"]:
+        raise SystemExit(f"{tag}: the LF-walk kernel launched {launches} "
+                         f"times and the plain walk ran {plain['cuda']} "
+                         "times on the card")
+
+
+def _held_launch_ms(calls: list, flush) -> float:
+    """Mean device ms of calls[1:] (each one launch; calls[0] warms up),
+    each between its own pair of CUDA events after flush() has evicted
+    the L2, all queued behind a spin kernel that holds the stream while
+    the host enqueues them, so the events time the card, not the host."""
+    import torch
+    calls[0]()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(HOLD_S * SPIN_HZ))
+    evs = []
+    for fn in calls[1:]:
+        flush()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        evs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in evs) / len(evs)
+
+
+def _walk_timing(r: dict, lat_ns: float, flush) -> dict:
+    """One recorded walk launch (recorded_walks) timed on the card: the
+    kernel through its launcher on copies of the launch's inputs, a
+    launch of the empty kernel with the same grid, and the plain walk;
+    beside them the bound (walk_work over the plain walk's trace) and
+    the chain floor (the longest lane's steps x lat_ns)."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch
+    dfm, mask, T, live = r["dfm"], r["mask"], r["T"], r["live"]
+    copies = [(r["kk"].clone(), r["steps"].clone())
+              for _ in range(WALK_REPS + 1)]
+    ms = _held_launch_ms(
+        [lambda kk=kk, st=st: fm_cuda.lf_walk(dfm, mask, kk, st, T, live)
+         for kk, st in copies], flush)
+    empty = _chase_lib().empty_launch
+    stream = torch.cuda.current_stream().cuda_stream
+    blocks = -(-r["kk"].numel() // WALK_THREADS)
+    launch_ms = _held_launch_ms(
+        [lambda: empty(blocks, WALK_THREADS, stream)] * (WALK_REPS + 1),
+        flush)
+    plain_ms = _time_ms(lambda: fm_torch._lf_walk_plain(
+        dfm, mask, r["kk"].clone(), r["steps"].clone(), T, r["check"],
+        live=live), 1)
+    w = walk_work(r["kk"], live, walk_trace(dfm, mask, r["kk"], T, live),
+                  mask, dfm.primary, dfm.seq_len)
+    t_bytes = w["bytes"] / HBM_BPS * 1e3
+    t_ops = w["ops"] / INT32_OPS * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms, T=T, **w,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                chain_floor_ms=w["longest"] * lat_ns * 1e-6)
+
+
+def walk_calls_check(tag: str, calls: list, timed: bool, lat_ns: float,
+                     flush) -> list:
+    """Each recorded sa_batch call (recorded_sa_batch) run again on its
+    inputs on the kernel and on the plain walk on the card: every
+    launch's rows and step counts, and the values and overflow flags,
+    must be equal (tolerance 0: integers). With timed, each launch is
+    timed (_walk_timing), and a launch measured below its bound fails
+    the phase. Returns a record per launch."""
+    import torch
+
+    from bwa_flow_tpu_torch.ops import fm_torch
+    out = []
+    for ci, c in enumerate(calls):
+        with recorded_walks() as wk:
+            got = fm_torch.sa_batch(c["dfm"], c["k"].clone(),
+                                    c["max_iters"], c["intv"])
+        with plain_walk(), recorded_walks() as wp:
+            want = fm_torch.sa_batch(c["dfm"], c["k"].clone(),
+                                     c["max_iters"], c["intv"])
+        torch.cuda.synchronize()
+        err, bad = _diff(list(got), list(want))
+        if len(wk) != len(wp):
+            bad += 1
+        for li, (a, b) in enumerate(zip(wk, wp)):
+            e, n_bad = _diff(list(a["out"]), list(b["out"]))
+            err, bad = max(err, e), bad + n_bad
+            rec = dict(call=ci, module=c["module"], launch=li,
+                       max_abs_err=e, slots=a["kk"].numel(),
+                       dtype=str(a["kk"].dtype).split(".")[-1])
+            if timed:
+                rec.update(_walk_timing(a, lat_ns, flush))
+            out.append(rec)
+            print(f"[p14] {tag} call {ci} ({c['module']}, {c['k'].numel()} "
+                  f"rows, intv {c['intv']}, budget {c['max_iters']}) "
+                  f"launch {li}: {rec['slots']} slots, {rec['dtype']}, "
+                  f"T {a['T']}; kernel vs plain walk: mismatching values "
+                  f"{n_bad}" + (
+                      f"; {rec['live']} live slots, {rec['walking']} "
+                      f"walking, {rec['dead_on_entry']} dead on entry; "
+                      f"kernel {rec['ms']:.4f} ms, plain "
+                      f"{rec['plain_ms']:.3f} ms, bound "
+                      f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
+                      f"{rec['bytes']} bytes over 3.35 TB/s with "
+                      f"{rec['blocks']} distinct rows, {rec['ops']} int32 "
+                      f"ops over 16.7e12/s for {rec['stepped_rows']} "
+                      f"distinct rows stepped from of {rec['steps']} "
+                      f"steps); longest lane {rec['longest']} steps, chain "
+                      f"floor {rec['chain_floor_ms']:.5f} ms; empty launch "
+                      f"{rec['launch_ms']:.4f} ms" if timed else ""))
+            if timed and rec["ms"] < rec["bound_ms"]:
+                raise SystemExit(f"phase 14 {tag}: a walk launch measured "
+                                 f"{rec['ms']} ms, below its bound "
+                                 f"{rec['bound_ms']} ms: the bound is wrong")
+        if bad:
+            raise SystemExit(f"phase 14 {tag}: sa_batch call {ci} on the "
+                             f"kernel differs from the plain walk ({bad} "
+                             f"values, max |err| {err})")
+    return out
+
+
+def _mapping(path: Path, n: int, paired: bool, tag: str) -> dict:
+    """One primary record a read, and the shares of reads mapped and (of
+    pairs) proper, of a SAM of n reads or pairs."""
+    recs = _records(path)
+    primary: dict = {}
+    mapped = proper = 0
+    for f in recs:
+        flag = int(f[1])
+        if flag & 0x900:
+            continue
+        key = (f[0], flag & 0xC0)
+        primary[key] = primary.get(key, 0) + 1
+        mapped += 0 if flag & 0x4 else 1
+        proper += 1 if flag & 0x42 == 0x42 else 0
+    reads = 2 * n if paired else n
+    if len(primary) != reads or any(v != 1 for v in primary.values()):
+        raise SystemExit(f"{tag}: not exactly one primary record a read")
+    out = dict(records=len(recs), mapped=mapped / reads,
+               proper=proper / n if paired else None)
+    print(f"[p14] {tag}: {reads} reads, {len(recs)} records, mapped "
+          f"{out['mapped']:.4f}" + (f", pairs proper {out['proper']:.4f}"
+                                    if paired else ""))
+    if out["mapped"] < 0.95 or (paired and out["proper"] < 0.90):
+        raise SystemExit(f"{tag}: too few reads mapped or pairs proper "
+                         f"({out})")
+    return out
+
+
+def _device_vs_host(tag: str, ref: str, fqs: list, out: Path,
+                    device: str) -> int:
+    """A subset through the CLI on the card and with --no-device: the
+    SAMs must be equal apart from @PG; returns their lines."""
+    from bwa_flow_tpu_torch import cli
+    dev, host = out.with_suffix(".dev.sam"), out.with_suffix(".host.sam")
+    t0 = time.perf_counter()
+    assert cli.main(["mem", "--device", device, "-o", str(dev), ref]
+                    + fqs) == 0
+    t_dev = time.perf_counter() - t0
+    assert cli.main(["mem", "--no-device", "-o", str(host), ref] + fqs) == 0
+    t_host = time.perf_counter() - t0 - t_dev
+    if _body(dev) != _body(host):
+        raise SystemExit(f"phase 14: the {tag} device SAM differs from "
+                         "--no-device")
+    print(f"[p14] {tag}: device SAM == --no-device SAM ({len(_body(dev))} "
+          f"lines; device {t_dev:.1f} s, --no-device {t_host:.1f} s)")
+    return len(_body(dev))
+
+
+def densify_check(work: Path, device: str) -> dict:
+    """Phase 3's index (under 2^28 rows, so it gets a dense SA) with its
+    .tpu.sadense.npy cache not read: _densify_sa on the kernel, then on
+    the plain walk on the card, both timed; the two arrays and phase
+    3's cache must be equal."""
+    import torch
+
+    from bwa_flow_tpu_torch.index.io import load_index
+    from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch
+
+    cache = work / "ref.fa.tpu.sadense.npy"
+    if not cache.exists():
+        raise SystemExit(f"phase 14: no dense-SA cache {cache} from phase 3")
+    fm = load_index(str(work / "ref.fa"))
+    fm.cache_prefix = None            # neither read nor write the cache
+    dfm = fm_torch.DeviceFM.from_host(fm, device, dense_sa_max=0)
+    out = {}
+    for tag in ("kernel", "plain"):
+        fm_cuda.n_launches["sa_walk"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if tag == "plain":
+                stack.enter_context(plain_walk())
+            dense = fm_torch._densify_sa(dfm, fm)
+        torch.cuda.synchronize()
+        out[tag] = dict(dense=dense, s=time.perf_counter() - t0,
+                        launches=fm_cuda.n_launches["sa_walk"])
+    want = np.load(cache)
+    same = (np.array_equal(out["kernel"]["dense"], out["plain"]["dense"]),
+            np.array_equal(out["kernel"]["dense"], want))
+    print(f"[p14] densify of phase 3's index ({int(fm.seq_len) + 1} rows, "
+          f"sa_intv {fm.sa_intv}): kernel {out['kernel']['s']:.3f} s "
+          f"({out['kernel']['launches']} launches), plain walk on the card "
+          f"{out['plain']['s']:.3f} s; kernel == plain {same[0]}, kernel "
+          f"== phase 3's cache {same[1]}")
+    if not all(same) or out["kernel"]["launches"] <= 0 \
+            or out["plain"]["launches"]:
+        raise SystemExit("phase 14: the dense SA on the kernel differs from "
+                         "the plain walk's or phase 3's cache, or the "
+                         "walks ran on the wrong version")
+    return dict(rows=int(fm.seq_len) + 1, kernel_s=out["kernel"]["s"],
+                plain_s=out["plain"]["s"],
+                launches=out["kernel"]["launches"])
+
+
+def phase_large_genome(work: Path, device: str) -> dict:
+    """The densify walk on phase 3's index (densify_check); then a
+    genome of BIG_LEN bp, above 2^28 BWT rows: `index` through the CLI
+    (SA-IS split out), a load that re-samples the SA 32 -> 4, SE and PE
+    runs through the CLI's default route with the seed program's fused
+    LF walk on the kernel, each walk of the SE run held to the plain
+    walk on the card and timed, resolve_sa_flat on a batch's own
+    intervals, and the dispatch check."""
+    import io
+    import itertools
+
+    import torch
+
+    from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.index import build
+    from bwa_flow_tpu_torch.index.io import load_index
+    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.ops import fm_torch
+    from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
+    from bwa_flow_tpu_torch.utils.opts import MemOpt
+
+    res: dict = {"densify": densify_check(work, device)}
+    big = work / "large"
+    big.mkdir()
+    t0 = time.perf_counter()
+    genome = make_genome(BIG_LEN, BIG_SEED)
+    write_inputs(big, genome, BIG_READS, BIG_SEED + 1, BIG_SUB)
+    write_pe_inputs(big, genome, BIG_PAIRS, BIG_SEED + 2, BIG_SUB)
+    del genome
+    print(f"[p14] genome {BIG_LEN} bp + {BIG_READS} reads + {BIG_PAIRS} "
+          f"pairs: {time.perf_counter() - t0:.1f} s")
+    ref = str(big / "ref.fa")
+    t0 = time.perf_counter()
+    with timed_calls(build, "suffix_array_sais") as t_sa:
+        assert cli.main(["index", ref]) == 0
+    res["index_s"], res["index_sa_s"] = time.perf_counter() - t0, t_sa["s"]
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        fm, t_load = _timed(load_index, ref)
+    said = [l for l in err.getvalue().splitlines() if "resampled SA" in l]
+    print(f"[p14] index of {BIG_LEN} bp: {res['index_s']:.1f} s (SA-IS "
+          f"{t_sa['s']:.1f} s); seq_len {fm.seq_len}; first load "
+          f"{t_load:.1f} s: {said}")
+    if fm.seq_len <= BIG_MIN_ROWS or fm.sa_intv != 4 or not said:
+        raise SystemExit(f"phase 14: seq_len {fm.seq_len}, sa_intv "
+                         f"{fm.sa_intv}: expected above 2^28 and 4")
+    res.update(seq_len=int(fm.seq_len), load_s=t_load, resampled=said[0])
+
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    with recorded_sa_batch() as se_calls, plain_walk_calls() as plain:
+        se = _native_run("large SE", base + [
+            "-o", str(big / "full.sam"), ref, str(big / "reads.fq")],
+            n=BIG_READS, phase="p14")
+    walk_launch_check("p14 large SE", se["walk_launches"], plain)
+    res["se"] = se
+    res["se_map"] = _mapping(big / "full.sam", BIG_READS, False, "large SE")
+    with plain_walk_calls() as plain:
+        pe = _native_run("large PE", base + [
+            "-o", str(big / "pe.sam"), ref, str(big / "r1.fq"),
+            str(big / "r2.fq")], n=BIG_PAIRS, phase="p14")
+    walk_launch_check("p14 large PE", pe["walk_launches"], plain)
+    res["pe"] = pe
+    res["pe_map"] = _mapping(big / "pe.sam", BIG_PAIRS, True, "large PE")
+    _device_vs_host(f"{BIG_SUB}-read subset", ref, [str(big / "sub.fq")],
+                    big / "sub", device)
+    _device_vs_host(f"{BIG_SUB}-pair subset", ref,
+                    [str(big / "sub1.fq"), str(big / "sub2.fq")],
+                    big / "pe_sub", device)
+
+    # the walks of the SE run against the plain walk, timed
+    dfm = se_calls[0]["dfm"] if se_calls else None
+    if dfm is None or dfm.sa_dense is not None:
+        raise SystemExit("phase 14: the SE run made no LF walk")
+    lat = l2_latency_ns(dfm.fm_blocks.numel() * 4, dfm.device, "p14")
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                            device=dfm.device)
+    flush = (lambda: flush_buf.fill_(1))
+    print(f"[p14] the SE run's sa_batch calls: "
+          f"{[(c['module'], c['k'].numel()) for c in se_calls]}")
+    res["seed_walk"] = walk_calls_check(
+        "seed walk", [c for c in se_calls if c["module"] == "smem_torch"],
+        True, lat["ns"], flush)
+    res["other_walks"] = walk_calls_check(
+        "probe walks of the SE run",
+        [c for c in se_calls if c["module"] != "smem_torch"], False,
+        lat["ns"], flush)
+    del se_calls
+
+    # the probe path on a batch's own intervals, every probe walked
+    ba = BatchAligner(MemOpt(), fm, smem_L=SEED_L, device=device)
+    seqs = [r.seq for r in itertools.islice(read_seqs(big / "reads.fq"),
+                                            BATCH)]
+    h = ba.seeds_dispatch(seqs)
+    intvs = ba.seeds_collect(h)
+    redo0 = ba.stats["sa_host_redo"]
+    with recorded_sa_batch() as probe_calls:
+        vals, offs, _ = ba.resolve_sa_flat(intvs, None)
+    redo = ba.stats["sa_host_redo"] - redo0
+    with plain_walk():
+        vals_p, offs_p, _ = ba.resolve_sa_flat(intvs, None)
+    fused = 0
+    same_fused = True
+    for r, v in enumerate(h["sa_vals"]):
+        if v is not None:
+            fused += len(v)
+            same_fused &= bool(np.array_equal(
+                vals[int(offs[r]):int(offs[r + 1])], v))
+    same_plain = np.array_equal(vals, vals_p) and np.array_equal(offs, offs_p)
+    print(f"[p14] resolve_sa_flat of {len(seqs)} reads' intervals, "
+          f"seed_handle None: {len(vals)} probes in {len(probe_calls)} "
+          f"chunks of widths {[c['k'].numel() for c in probe_calls]}; "
+          f"sa_host_redo {redo}; == the plain walk {same_plain}; == the "
+          f"seed program's fused values on {fused} probes {same_fused}")
+    if not (same_plain and same_fused and fused and probe_calls):
+        raise SystemExit("phase 14: resolve_sa_flat on the kernel differs "
+                         "from the plain walk or the fused values")
+    res["probe"] = dict(probes=len(vals), fused=fused, sa_host_redo=redo,
+                        widths=[c["k"].numel() for c in probe_calls])
+    res["probe_walk"] = walk_calls_check("probe chunk", probe_calls[:1],
+                                         True, lat["ns"], flush)
+    del probe_calls
+
+    reads = seeds_dispatch_reads(ba, seqs)
+    print(f"[p14] seeds_dispatch of {len(seqs)} reads, no dense SA: "
+          f"{reads['before']} before the seed program, {reads['after']} "
+          f"after it; synchronising calls in the dispatch "
+          f"{len(reads['syncs'])} {reads['syncs'][:3]}")
+    waits = [m for m in reads["before"] + reads["after"] if m != "upload"]
+    if waits or reads["syncs"] or "upload" not in reads["before"]:
+        raise SystemExit("phase 14: seeds_dispatch waited for the card or "
+                         "read it")
+    res["dispatch_reads"] = reads
+    res["hbm_latency"] = lat
+    return res
+
+
+def _mean(recs: list, key: str) -> float:
+    return sum(r[key] for r in recs) / len(recs)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3156,7 +3755,7 @@ def main() -> int:
                 print(f"[build] {name}.cu ptxas: {line.strip()}")
         ptxas[name] = ptxas_report(_build.build_log(name))
         print(f"[build] {name}.cu kernels: {ptxas[name]}")
-    for name in REDESIGNED:
+    for name in (*REDESIGNED, "sa_walk"):
         if not ptxas[name] or any(k.get("stack", 1)
                                   for k in ptxas[name].values()):
             raise SystemExit(f"{name}: ptxas puts a stack frame on a kernel "
@@ -3205,6 +3804,8 @@ def main() -> int:
                         "pe.sam": pres["markdup"]})
     hres = timed_phase("11 host libraries", phase_host_libraries, WORK,
                        genome, "cuda")
+    del genome
+    gres = timed_phase("14 large genome", phase_large_genome, WORK, "cuda")
     launches_by_path = {
         "ksw_extend2": {"single_end": mres["launches"],
                         "sort": sres["launches"],
@@ -3273,7 +3874,8 @@ def main() -> int:
                   "native_se_waves": nres["se_waves"],
                   "native_pe_host": nres["pe_host"],
                   "native_pe_waves": nres["pe_waves"],
-                  "native_shards": nres["shards"]}
+                  "native_shards": nres["shards"],
+                  "large_se": gres["se"], "large_pe": gres["pe"]}
     for name, (_, plain, replaces) in SEED_KERNELS.items():
         k = seedres[name]
         kernels.append({
@@ -3295,6 +3897,35 @@ def main() -> int:
             "launches_by_path": {t: r["seed_launches"][name]
                                  for t, r in seed_paths.items()},
             "calls": k["calls"]})
+    # the LF walk: launches on the large genome's SE run (the CLI's
+    # default route; the seed program's fused walk), ms, plain_ms,
+    # bound_ms, chain floor and a launch's own cost a launch's mean over
+    # that run's seed-walk launches (phase 14)
+    sw = gres["seed_walk"]
+    checked = sw + gres["other_walks"] + gres["probe_walk"]
+    kernels.append({
+        "name": "sa_walk", "route": "cuda",
+        "source": "bwa_flow_tpu_torch/csrc/sa_walk.cu",
+        "replaces": "bwa_flow_tpu/ops/fm_jax.py:338",
+        "replaces_kernel": "bwa_flow_tpu/ops/fm_jax.py::_lf_walk_fixed, "
+                           "and sa_batch's while_loops at :438 and :457",
+        "checked": True, "launches": gres["se"]["walk_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in checked),
+        "ms": _mean(sw, "ms"), "plain_ms": _mean(sw, "plain_ms"),
+        "bound_ms": _mean(sw, "bound_ms"),
+        "bound_by": max(sw, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None, "chain_floor_ms": _mean(sw, "chain_floor_ms"),
+        "launch_cost_ms": _mean(sw, "launch_ms"),
+        "hbm_latency_ns": gres["hbm_latency"]["ns"],
+        "ptxas": ptxas["sa_walk"],
+        "launches_by_path": {
+            "large_se": gres["se"]["walk_launches"],
+            "large_pe": gres["pe"]["walk_launches"],
+            "p9_no_dense_sa": yres["no_dense_sa"]["walk_launches"],
+            "p11_resampled": hres["resample"]["walk_launches"],
+            "densify_4_6_mbp": gres["densify"]["launches"]},
+        "calls": {"seed_walk": sw, "probe_chunk": gres["probe_walk"]},
+        "densify": gres["densify"], "probe": gres["probe"]})
     kernels[0]["sort_path_device_ms"] = sres["path"]["device_ms"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     bres["max_abs_err"])
@@ -3319,7 +3950,14 @@ def main() -> int:
                       "seed_s_per_batch": {
                           t: r["seed_s_per_batch"]
                           for t, r in seed_paths.items()},
-                      "seed_dispatch_reads": seedres["dispatch_reads"]}))
+                      "seed_dispatch_reads": seedres["dispatch_reads"],
+                      "large_genome": {
+                          k: gres[k] for k in (
+                              "seq_len", "index_s", "index_sa_s", "load_s",
+                              "resampled", "se_map", "pe_map")} | {
+                          "se_wall_s": gres["se"]["wall_s"],
+                          "pe_wall_s": gres["pe"]["wall_s"],
+                          "dispatch_reads": gres["dispatch_reads"]}}))
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
