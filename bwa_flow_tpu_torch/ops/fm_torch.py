@@ -10,7 +10,7 @@ batch of probes:
     bidirectional chain (bwa/bwt.c:262-275)
   - sa lookup      = a dense-SA gather, or a batched LF walk to a sampled
     row with an iteration budget and an overflow mask (bwa/bwt.c:86-96);
-    on a card each walk is one launch of the sa_walk kernel
+    on a card each sa_batch call is one launch of the sa_walk kernel
     (ops/fm_cuda.py, csrc/sa_walk.cu), on the CPU its plain version
 
 torch has no unsigned 32-bit shifts or popcount: the packed words widen
@@ -312,24 +312,65 @@ def _inv_psi_batch(dfm: DeviceFM, k: torch.Tensor) -> torch.Tensor:
 
 
 def _lf_walk_plain(dfm: DeviceFM, mask: int, kk, steps, T: int,
-                   check: int = 8, fetch=to_host, live=None):
-    """The plain version of the sa_walk kernel: T LF steps over every
-    lane; dead lanes (sampled rows) hold, and so do the slots at or past
-    `live` (a pool's padding; an int32 [1] tensor, or None for every
-    lane). Stops early once every lane is dead (read with `fetch` every
-    `check` steps; the remaining steps would change nothing). Returns
-    new tensors."""
-    lanes = None if live is None else \
-        torch.arange(kk.shape[0], device=kk.device) < live
+                   check: int = 8, fetch=to_host):
+    """T LF steps over every lane (JAX's _lf_walk_fixed and the
+    while_loops' bodies); dead lanes (sampled rows) hold. Stops early
+    once every lane is dead (read with `fetch` every `check` steps; the
+    remaining steps would change nothing). Returns (kk, steps): new
+    tensors, or the inputs when no lane walked."""
     for it in range(T):
         walking = (kk & mask) != 0
-        if lanes is not None:
-            walking = walking & lanes
         if it % check == 0 and not fetch(walking.any()):
             break
         kk = torch.where(walking, _inv_psi_batch(dfm, kk), kk)
         steps = steps + walking.to(steps.dtype)
     return kk, steps
+
+
+def _sa_walk_plain(dfm: DeviceFM, k: torch.Tensor, max_iters: int,
+                   intv: int, fetch=to_host
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the sa_walk kernel: sa_batch's LF walk as the
+    JAX package runs it (fm_jax.sa_batch), step by step. PHASED with
+    `intv` and B >= 64: 2*intv steps over all lanes; the first B/4 live
+    lanes in lane order compacted into a pool (compact_pool: lane 0 in
+    every slot it leaves empty, so those copies walk as lane 0 does) for
+    4*intv more; the first B/16 still live, pool-dropped lanes included,
+    into a pool that walks to max_iters; each pool scattered back.
+    Otherwise one walk to max_iters. Returns (sa int64[B], overflow
+    bool[B]); a lane still live at the end (budget or pool exhausted)
+    overflows. The stop checks read the card through `fetch`."""
+    mask = dfm.sa_intv - 1
+    B = k.shape[0]
+    phased = intv > 0 and B >= 64
+    kk, steps = _lf_walk_plain(dfm, mask, k, torch.zeros_like(k),
+                               2 * intv if phased else max_iters,
+                               8 if phased else 1, fetch)
+    if phased:
+        def compact_pool(CAP):
+            """The pool's lanes: the first CAP live lanes in lane order,
+            then lane 0 in every slot left."""
+            live = (kk & mask) != 0
+            l32 = live.to(torch.int32)
+            rank = torch.cumsum(l32, 0, dtype=torch.int32) - l32
+            dst = torch.where(live & (rank < CAP), rank, CAP).long()
+            src = torch.zeros(CAP + 1, dtype=torch.int64, device=k.device)
+            src[dst] = torch.arange(B, dtype=torch.int64, device=k.device)
+            return src[:CAP]
+
+        # survivors (~e^-2) -> B/4 pool, 4*intv fixed steps
+        src = compact_pool(B // 4)
+        kp, sp = _lf_walk_plain(dfm, mask, kk[src], steps[src], 4 * intv,
+                                fetch=fetch)
+        kk, steps = kk.index_put((src,), kp), steps.index_put((src,), sp)
+        # stragglers (~e^-6) -> B/16 pool, walk to the budget
+        src = compact_pool(B // 16)
+        kp, sp = _lf_walk_plain(dfm, mask, kk[src], steps[src], max_iters,
+                                1, fetch)
+        kk, steps = kk.index_put((src,), kp), steps.index_put((src,), sp)
+    overflow = (kk & mask) != 0
+    idx = (kk // dfm.sa_intv).clamp(0, dfm.sa.shape[0] - 1).long()
+    return (steps + dfm.sa[idx]).to(torch.int64), overflow
 
 
 def _on_card(t: torch.Tensor, who: str) -> bool:
@@ -344,82 +385,26 @@ def _on_card(t: torch.Tensor, who: str) -> bool:
                      "kernel) or cpu (the plain version)")
 
 
-def _lf_walk(dfm: DeviceFM, mask: int, kk, steps, T: int, check: int = 8,
-             fetch=to_host, live=None):
-    """_lf_walk_plain's walk: on CUDA tensors one launch of the sa_walk
-    kernel, which updates kk and steps IN PLACE and reads nothing from
-    the card (check and fetch serve only the plain version); on CPU
-    tensors the plain version. Returns (kk, steps)."""
-    if not _on_card(kk, "_lf_walk"):
-        return _lf_walk_plain(dfm, mask, kk, steps, T, check, fetch, live)
-    fm_cuda.lf_walk(dfm, mask, kk, steps, T, live)
-    return kk, steps
-
-
 def sa_batch(dfm: DeviceFM, k: torch.Tensor, max_iters: int = 256,
              intv: int = 0, fetch=to_host
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Suffix-array values (bwa/bwt.c:86-96). k: int64[B] (or int32 on a
     narrow view). With a dense SA this is one gather. Otherwise an LF
     walk; with `intv` (the sampled interval) it is PHASED: 2*intv steps
-    over all lanes, the survivors compacted into a B/4 pool for 4*intv
-    more, then a B/16 pool walks to max_iters. Returns (sa int64[B],
-    overflow bool[B]); overflow lanes (budget or pool exhausted) are
-    redone by the caller on the host. On a card the walks are three
-    launches of the sa_walk kernel (one unphased), each pool's live
-    count stays on the card, and nothing here reads the card; on the
-    CPU the plain walk reads its stop condition through `fetch`."""
+    over all lanes, the first B/4 survivors in lane order 4*intv more,
+    then the first B/16 still live to max_iters (_sa_walk_plain). Returns
+    (sa int64[B], overflow bool[B]); overflow lanes (budget or pool
+    exhausted) are redone by the caller on the host. On a card the walk
+    is one launch of the sa_walk kernel (fm_cuda.sa_walk), which reads
+    nothing back to the host; on the CPU the plain walk reads its stop
+    condition through `fetch`. k is not written."""
     if dfm.sa_dense is not None:
         idx = k.clamp(0, dfm.sa_dense.shape[0] - 1).long()
         return (dfm.sa_dense[idx].to(torch.int64),
                 torch.zeros(k.shape, dtype=torch.bool, device=k.device))
-    mask = dfm.sa_intv - 1
-    B = k.shape[0]
-    if intv > 0 and B >= 64:
-        # the caller's rows copied (the kernel walks in place), with one
-        # more slot: row 0, a sampled row, so a dead lane. It is the sink
-        # of the pools' padding slots, which the walks leave as they are
-        # and the scatters back write there, so no padding slot lands on
-        # a lane (a copy of lane 0 that was not walked would undo lane
-        # 0's walk)
-        kk = torch.cat([k, k.new_zeros(1)])
-        steps = torch.zeros_like(kk)
-        kk, steps = _lf_walk(dfm, mask, kk, steps, 2 * intv, fetch=fetch)
-
-        def compact_pool(CAP):
-            """(src, n): a pool of CAP slots holding the first CAP live
-            lanes in lane order and the sink B in every other slot, and
-            their count n = min(live, CAP) as an int32 [1] tensor."""
-            live = (kk[:B] & mask) != 0
-            l32 = live.to(torch.int32)
-            rank = torch.cumsum(l32, 0, dtype=torch.int32) - l32
-            dst = torch.where(live & (rank < CAP), rank, CAP).long()
-            src = torch.full((CAP + 1,), B, dtype=torch.int64,
-                             device=k.device)
-            src[dst] = torch.arange(B, dtype=torch.int64, device=k.device)
-            n = l32.sum(dtype=torch.int32).clamp(max=CAP).reshape(1)
-            return src[:CAP], n
-
-        # survivors (~e^-2) -> B/4 pool, 4*intv fixed steps
-        src, n = compact_pool(B // 4)
-        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], 4 * intv,
-                          fetch=fetch, live=n)
-        kk[src] = kp
-        steps[src] = sp
-        # stragglers (~e^-6) -> B/16 pool, walk to the budget
-        src, n = compact_pool(B // 16)
-        kp, sp = _lf_walk(dfm, mask, kk[src], steps[src], max_iters, 1,
-                          fetch, live=n)
-        kk[src] = kp
-        steps[src] = sp
-        kk, steps = kk[:B], steps[:B]
-    else:
-        kk, steps = _lf_walk(dfm, mask, k.clone(), torch.zeros_like(k),
-                             max_iters, 1, fetch)
-    # pool-dropped lanes never finish: flagged as overflow
-    overflow = (kk & mask) != 0
-    idx = (kk // dfm.sa_intv).clamp(0, dfm.sa.shape[0] - 1).long()
-    return (steps + dfm.sa[idx]).to(torch.int64), overflow
+    if not _on_card(k, "sa_batch"):
+        return _sa_walk_plain(dfm, k, max_iters, intv, fetch)
+    return fm_cuda.sa_walk(dfm, k, max_iters, intv)
 
 
 def _densify_sa(dfm: DeviceFM, fm: FMIndex, fetch=to_host) -> np.ndarray:

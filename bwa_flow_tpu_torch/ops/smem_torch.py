@@ -901,7 +901,7 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
     returns a handle for seed_collect_batch, whose "event" marks the
     program's end on a card. On a card nothing here reads it: the
     machines are kernels, and so is the fused LF walk of an index
-    without a dense SA (its pools' live counts stay on the card); on
+    without a dense SA (one launch, which reads nothing back); on
     the CPU the plain versions read their stop conditions through
     `fetch`. The padded read batch (device tensors) stays in the handle
     so the extension stage can address it."""

@@ -99,9 +99,10 @@ Phases:
      fail, on the pure-Python route (its injections target its wave
      buffer; phase 10 injects on the native route): the first 2048 of phase 3's reads on the wide int64 seed
      machine (FORCE_WIDE) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
-     the fused LF walk, which must have launched the sa_walk kernel and
-     run no plain walk on the card), records equal to the default path's
-     in the same phase; -I 400,40 on phase 4's pairs (int16 kernel): 64
+     the fused LF walk, which must have launched the sa_walk kernel once
+     a sa_batch call and run no plain walk on the card; each call then
+     held to the plain version on the card), records equal to the default
+     path's in the same phase; -I 400,40 on phase 4's pairs (int16 kernel): 64
      pairs equal to --no-device, >= 90% proper of 2048. Then --validate-every 1 on
      phase 3's reads (SAM == full.sam, one validation a batch), the same
      run with the watchdog off (--device-timeout 0) and on, in turns (its
@@ -150,7 +151,8 @@ Phases:
      not die by a signal; (e) phase 3's index loaded with RESAMPLE_MIN =
      0: sa_intv 32 -> 4, the table every 4th entry of the full SA, then
      phase 9's reads with BWA_TPU_DENSE_SA_MAX=0 on the LF walk over it
-     (the sa_walk kernel, no plain walk on the card), records equal to
+     (the sa_walk kernel once a sa_batch call, no plain walk on the card,
+     each call held to the plain version on the card), records equal to
      phase 9's default run.
  12. the seed program's four kernels (seed_p1p3, seed_fwd, seed_bwd,
      seed_cohort) against their plain versions on the card, after phase
@@ -182,37 +184,41 @@ Phases:
      BatchAligner's seeds_dispatch of the SE batch must upload its reads
      without a wait, make no fetch, wait or put, and torch's sync debug
      mode must report no synchronising call in the whole dispatch.
- 14. the LF walk (csrc/sa_walk.cu) on the card, after phase 11: (a)
-     phase 3's index with its dense-SA cache unread, _densify_sa on the
-     kernel and on the plain walk on the card, both timed, both equal to
-     phase 3's cache; (b) a genome of BIG_LEN bp (D. melanogaster's dm6
-     length, made by make_genome from a seed), whose BWT has more than
-     2^28 rows: no dense SA, the SA re-sampled 32 -> 4 at load, 4x-deep
-     pass-2 pools. `index` through the CLI (SA-IS split out); a load
-     that prints the re-sampling's time; BIG_READS SE reads and
-     BIG_PAIRS FR pairs through the CLI's default route (native, host
+ 14. the LF walk (csrc/sa_walk.cu, one launch a sa_batch call) on the
+     card, after phase 11: (a) phase 3's index with its dense-SA cache
+     unread, _densify_sa on the kernel and on the plain walk on the card,
+     both timed, both equal to phase 3's cache, one launch a call, each
+     call held to the plain version on the card, the first chunk and the
+     first deep redo timed as below; (b) a genome of BIG_LEN bp (D.
+     melanogaster's dm6 length, made by make_genome from a seed), whose
+     BWT has more than 2^28 rows: no dense SA, the SA re-sampled 32 -> 4
+     at load, 4x-deep pass-2 pools. `index` through the CLI (SA-IS split
+     out); a load that prints the re-sampling's time; BIG_READS SE reads
+     and BIG_PAIRS FR pairs through the CLI's default route (native, host
      mode, -t 8, batches of 4096): one primary record a read, >= 95%
-     mapped, >= 90% of pairs proper, the walk kernel launched and no
-     plain walk on the card, spans and the enqueue hooks printed; a
-     BIG_SUB-read and a BIG_SUB-pair subset equal to --no-device apart
-     from @PG. Every sa_batch call of the SE run (recorded through each
-     module that imported it) runs again on the kernel and on the plain
-     walk on the card: each launch's rows and step counts, the values
-     and the overflow flags equal (tolerance 0). Each launch of the seed
-     program's walk, and of one probe chunk, is timed through the
-     launcher with CUDA events after an L2 flush, the stream held,
-     beside its lanes (slots, live slots walking, dead on entry), its
-     bound (the larger of: 32 bytes a distinct fm_blocks row its chains
-     touch, each walking lane's row and step count read and written,
-     one read of a lane dead on entry, over 3.35 TB/s; OPS_PER_LF int32
-     operations a distinct row stepped from over 16.7e12/s; walk_work),
-     its chain floor (the longest lane's steps x the dependent-load
-     latency over a buffer of fm_blocks' size, CHASE_CU) and an empty
-     kernel launched with the same grid; a launch measured below its
-     bound fails the phase. Then BatchAligner.resolve_sa_flat on a
-     4096-read batch's own intervals with no seed handle (every probe
-     walked): equal to the seed program's fused values and to the plain
-     walk on the card; and phase 12's dispatch check on this index.
+     mapped, >= 90% of pairs proper, the walk kernel launched once a
+     sa_batch call and no plain walk on the card, spans and the enqueue
+     hooks printed; a BIG_SUB-read and a BIG_SUB-pair subset equal to
+     --no-device apart from @PG. Every sa_batch call of both runs
+     (recorded through each module that imported it) runs again on the
+     kernel, which must launch once, and on the plain version on the
+     card: the values and the overflow flags equal (tolerance 0). Each
+     call of the seed program's walk, and one probe chunk, is timed whole
+     (outputs and scratch included) with CUDA events after an L2 flush,
+     the stream held, beside its lanes (slots, live and dead on entry),
+     its bound (the larger of: each slot's row read, its value and flag
+     written, one sampled-SA entry read a lane, and 32 bytes a distinct
+     fm_blocks row its chains touch, over 3.35 TB/s; OPS_PER_LF int32
+     operations a distinct row stepped from over 16.7e12/s; walk_work
+     over walk_trace), its chain floor (the longest lane's total steps x
+     the dependent-load latency over a buffer of fm_blocks' size,
+     CHASE_CU) and an empty kernel launched with the call's grid; a call
+     measured below its bound fails the phase. Then
+     BatchAligner.resolve_sa_flat on a 4096-read batch's own intervals
+     with no seed handle (every probe walked): equal to the seed
+     program's fused values and to the plain walk on the card, each
+     chunk held to the plain version; and phase 12's dispatch check on
+     this index.
  13. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
@@ -225,8 +231,9 @@ Phases:
      bound_ms phase 12's at the SE batch, with its chain floor, the
      latency under it, each kernel's ptxas report and what its redesign
      for Hopper changed ("redesigned"); the LF walk's launches are those
-     of phase 14's SE run, its ms, plain_ms, bound_ms, chain floor and
-     launch cost a launch's mean over that run's seed-walk launches; the
+     of phase 14's SE run, its ms (a whole sa_batch call), plain_ms,
+     bound_ms, chain floor and launch cost a call's mean over that run's
+     seed-walk calls; the
      line also holds the seed program's seconds a batch on each main
      path and phase 14's index and mapping numbers.
 
@@ -1699,7 +1706,9 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     os.environ["BWA_TPU_DENSE_SA_MAX"] = "0"
     fm_cuda.n_launches["sa_walk"] = 0
     try:
-        with timed_calls(smem_torch, "sa_batch") as walks, \
+        # recorded_sa_batch first: it replaces only the real sa_batch
+        with recorded_sa_batch() as calls, \
+                timed_calls(smem_torch, "sa_batch") as walks, \
                 plain_walk_calls() as plain:
             runs["no_dense_sa"] = _cli_run("no dense SA", base + [
                 "-o", str(work / "p9_nodense.sam"), ref, fq])
@@ -1711,7 +1720,10 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     if not walks["calls"]:
         raise SystemExit("the no-dense-SA run took no fused LF walk")
     walk_launch_check("p9 no dense SA", fm_cuda.n_launches["sa_walk"],
-                      plain)
+                      calls, plain)
+    runs["no_dense_sa"]["walk_calls"] = walk_calls_check("p9 no dense SA",
+                                                         calls)
+    del calls
     want = _body(work / "p9_default.sam")
     for tag, name in (("wide", "p9_wide.sam"),
                       ("no_dense_sa", "p9_nodense.sam")):
@@ -2556,8 +2568,9 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
               f"threads), table == SA[::4] ({len(want)} entries)")
         fq = str(work / "p9_reads.fq")
         fm_cuda.n_launches["sa_walk"] = 0
-        with _recording(smem_torch, "sa_batch",
-                        lambda a: int(a[0].sa_intv)) as intvs, \
+        with recorded_sa_batch() as calls, \
+                _recording(smem_torch, "sa_batch",
+                           lambda a: int(a[0].sa_intv)) as intvs, \
                 plain_walk_calls() as plain:
             run = _cli_run("(e) resampled SA, LF walk", [
                 "-t", "8", "--batch-reads", str(BATCH), "--device", device,
@@ -2567,7 +2580,9 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
         del os.environ["BWA_TPU_DENSE_SA_MAX"]
         cache.unlink(missing_ok=True)
     walk_launches = fm_cuda.n_launches["sa_walk"]
-    walk_launch_check("p11 (e)", walk_launches, plain)
+    walk_launch_check("p11 (e)", walk_launches, calls, plain)
+    checked = walk_calls_check("p11 (e)", calls)
+    del calls
     if set(intvs) != {4}:
         raise SystemExit(f"phase 11 (e): the LF walks ran at intervals "
                          f"{set(intvs)}, not 4")
@@ -2577,7 +2592,8 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
     print(f"[p11] (e) {P9_READS} reads on the LF walk over the resampled "
           f"table ({len(intvs)} walks): SAM == phase 9's default run")
     res["resample"] = dict(load_s=t_load, walks=len(intvs),
-                           mem_s=run["wall_s"], walk_launches=walk_launches)
+                           mem_s=run["wall_s"], walk_launches=walk_launches,
+                           walk_calls=checked)
     return res
 
 
@@ -3211,76 +3227,90 @@ BIG_SEED = 0xD06
 BIG_READS = 8192             # single-end reads of the large genome ...
 BIG_PAIRS = 4096             # ... and FR pairs
 BIG_SUB = 256                # reads and pairs held to --no-device
-WALK_REPS = 5                # timed launches of each walk launch
-WALK_THREADS = 256           # threads a block of csrc/sa_walk.cu
+WALK_REPS = 5                # timed runs of each sa_batch call
 FLUSH_BYTES = 128 << 20      # written before each timed launch: evicts the L2
 HOLD_S = 0.05                # seconds the spin kernel holds the stream
 # int32 operations of one LF step: FM::lf (csrc/seed_fm.cuh) and a turn of
-# sawalk::walk_lane's loop (csrc/sa_walk.cuh), counted from the code at the
-# fewest Hopper instructions, int32 coordinates (the int64 view's wider
-# ops count the same, so the bound stays a lower one): the loop's test of
-# k & mask, its budget test, its counter and the step count (5); k's shift
-# past primary (2) and clamp (2); the row's index and address (3); the
-# offset in the row (1); the word at it, a shift and three compares and
-# selects (7); c, a mask, a subtraction, a shift, a shift and a mask (5);
-# L2[c] and the row's count of c, three compares and six selects (9);
-# count_row's count of c: c's pattern (1), per word an xnor, a shift, two
-# logic ops and a popcount (4 x 5) and its keep mask, a subtraction (none
-# for word 0), a max, a shift and a funnel shift (15), the four counts
-# summed (2) and their low byte (1); the sum (1); the select at primary
-# (2). The loads are not operations.
+# sawalk::walk_queue's loop (csrc/sa_walk.cuh), counted from the code at
+# the fewest Hopper instructions, int32 coordinates (the int64 view's
+# wider ops count the same, so the bound stays a lower one): the loop's
+# test of k & mask, its budget test against the lane's end and the step
+# count (4), its branch (1); k's shift past primary (2) and clamp (2);
+# the row's index and address (3); the offset in the row (1); the word at
+# it, a shift and three compares and selects (7); c, a mask, a
+# subtraction, a shift, a shift and a mask (5); L2[c] and the row's count
+# of c, three compares and six selects (9); count_row's count of c: c's
+# pattern (1), per word an xnor, a shift, two logic ops and a popcount
+# (4 x 5) and its keep mask, a subtraction (none for word 0), a max, a
+# shift and a funnel shift (15), the four counts summed (2) and their low
+# byte (1); the sum (1); the select at primary (2). The loads, and a
+# lane's queue work (once a lane, not once a step), are not counted.
 OPS_PER_LF = 76
 
 
-def walk_trace(dfm, mask: int, kk, T: int, live=None) -> list:
-    """The plain walk's trace (fm_torch._lf_walk_plain's loop, on the
-    tensors' device): for each step, the rows of the lanes that take it
-    (live, below the live count), until every lane is dead or T steps."""
+def walk_trace(dfm, k, max_iters: int, intv: int) -> dict:
+    """One sa_batch call followed lane by lane (the contract of
+    csrc/sa_walk.cuh, on the tensors' device): each phase's pool (every
+    lane, then the first B/4 live lanes in lane order, then the first
+    B/16 still live), and in each step the rows of the lanes that take
+    it. Returns {"rows": a tensor of rows for each step taken, "steps":
+    each lane's total steps (int64), "k": each lane's last row}. A
+    pool's padding copies of lane 0 (the plain version's) are not
+    lanes: they walk lane 0's rows."""
     import torch
 
-    from bwa_flow_tpu_torch.ops import fm_torch
-    n = kk.numel()
-    lanes = torch.ones(n, dtype=torch.bool, device=kk.device) \
-        if live is None else torch.arange(n, device=kk.device) < live
-    out = []
-    for _ in range(T):
-        walking = lanes & ((kk & mask) != 0)
-        rows = kk[walking]
-        if not rows.numel():
-            break
-        out.append(rows)
-        kk = torch.where(walking, fm_torch._inv_psi_batch(dfm, kk), kk)
-    return out
+    from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch
+    mask = dfm.sa_intv - 1
+    B = k.numel()
+    budgets = fm_cuda.phases(B, max_iters, intv)
+    caps = (B // 4, B // 16)
+    kk = k.clone()
+    steps = torch.zeros(B, dtype=torch.int64, device=k.device)
+    pool = torch.ones(B, dtype=torch.bool, device=k.device)
+    rows = []
+    for ph, T in enumerate(budgets):
+        if ph:
+            live = (kk & mask) != 0
+            rank = torch.cumsum(live, 0) - live.long()
+            pool = live & (rank < caps[ph - 1])
+        for _ in range(T):
+            walking = pool & ((kk & mask) != 0)
+            r = kk[walking]
+            if not r.numel():
+                break
+            rows.append(r)
+            kk = torch.where(walking, fm_torch._inv_psi_batch(dfm, kk), kk)
+            steps += walking
+    return dict(rows=rows, steps=steps, k=kk)
 
 
-def walk_work(kk0, live, trace: list, mask: int, primary: int,
+def walk_work(k, sa_bytes: int, trace: dict, mask: int, primary: int,
               seq_len: int) -> dict:
-    """What one walk launch must do, for its bound: the slots launched
-    (kk0, their rows), the live slots (below the live count; None: all)
-    that walk and those dead on entry (padding slots count nothing); the
-    distinct fm_blocks rows the walking lanes' chains touch (trace:
-    walk_trace's); the distinct rows stepped from, each one LF step
-    (lanes on one chain, from one start or once a lane reaches another's
-    start, share their steps); the longest lane's steps. Bytes: 32 for
-    each distinct block row, each walking lane's row and step count read
-    and written, one read of each dead-on-entry lane's row; operations:
-    OPS_PER_LF a distinct row stepped from."""
+    """What one sa_batch call on the walk must do, for its bound: its
+    slots (k, their rows), those live on entry and those dead on entry;
+    the distinct fm_blocks rows the lanes' chains touch and the distinct
+    rows stepped from (trace: walk_trace's), each one LF step (lanes on
+    one chain, from one start or once a lane reaches another's row,
+    share their steps); every lane's steps and the longest lane's total.
+    Bytes: each slot's row read once, its value (8) and overflow flag (1)
+    written once, one sampled-SA entry (sa_bytes) read for each lane, 32
+    for each distinct block row; operations: OPS_PER_LF a distinct row
+    stepped from."""
     import torch
-    t = kk0.element_size()
-    n = kk0.numel() if live is None else min(int(live), kk0.numel())
-    walking = int(((kk0[:n] & mask) != 0).sum())
-    dead = n - walking
-    if trace:
-        rows = torch.cat([r.long() for r in trace])
+    B = k.numel()
+    walking = int(((k & mask) != 0).sum())
+    if trace["rows"]:
+        rows = torch.cat([r.long() for r in trace["rows"]])
         stepped = int(torch.unique(rows).numel())
         blk = (rows - (rows >= primary).long()).clamp(0, seq_len - 1) >> 6
         blocks = int(torch.unique(blk).numel())
     else:
-        rows, stepped, blocks = [], 0, 0
-    return dict(slots=kk0.numel(), live=n, walking=walking,
-                dead_on_entry=dead, blocks=blocks, stepped_rows=stepped,
-                steps=len(rows), longest=len(trace),
-                bytes=32 * blocks + walking * 4 * t + dead * t,
+        stepped = blocks = 0
+    return dict(slots=B, walking=walking, dead_on_entry=B - walking,
+                blocks=blocks, stepped_rows=stepped,
+                steps=int(trace["steps"].sum()),
+                longest=int(trace["steps"].max()) if B else 0,
+                bytes=B * (k.element_size() + 9 + sa_bytes) + 32 * blocks,
                 ops=stepped * OPS_PER_LF)
 
 
@@ -3311,32 +3341,6 @@ def recorded_sa_batch():
 
 
 @contextlib.contextmanager
-def recorded_walks():
-    """While the block runs, every walk (fm_torch._lf_walk) is recorded
-    with copies of its inputs (rows, step counts, live count) and of
-    what it gives back (the kernel's in place, the plain version's
-    returned); yields the list."""
-    from bwa_flow_tpu_torch.ops import fm_torch
-    real = fm_torch._lf_walk
-    log: list = []
-
-    def rec(dfm, mask, kk, steps, T, check=8, fetch=fm_torch.to_host,
-            live=None):
-        r = dict(dfm=dfm, mask=mask, T=T, check=check, kk=kk.clone(),
-                 steps=steps.clone(),
-                 live=None if live is None else live.clone())
-        out = real(dfm, mask, kk, steps, T, check, fetch, live)
-        r["out"] = tuple(o.clone() for o in out)
-        log.append(r)
-        return out
-    fm_torch._lf_walk = rec
-    try:
-        yield log
-    finally:
-        fm_torch._lf_walk = real
-
-
-@contextlib.contextmanager
 def plain_walk():
     """While the block runs, the walks take their plain version on the
     card (the comparisons' reference)."""
@@ -3354,35 +3358,39 @@ def plain_walk_calls():
     """While the block runs, count the plain walks that run on a CUDA
     tensor (a main path on the card must make none); yields {"cuda"}."""
     from bwa_flow_tpu_torch.ops import fm_torch
-    real = fm_torch._lf_walk_plain
+    real = fm_torch._sa_walk_plain
     seen = {"cuda": 0}
 
-    def counted(dfm, mask, kk, *a, **k):
-        seen["cuda"] += kk.device.type == "cuda"
-        return real(dfm, mask, kk, *a, **k)
-    fm_torch._lf_walk_plain = counted
+    def counted(dfm, k, *a, **kw):
+        seen["cuda"] += k.device.type == "cuda"
+        return real(dfm, k, *a, **kw)
+    fm_torch._sa_walk_plain = counted
     try:
         yield seen
     finally:
-        fm_torch._lf_walk_plain = real
+        fm_torch._sa_walk_plain = real
 
 
-def walk_launch_check(tag: str, launches: int, plain: dict) -> None:
-    """Raise unless the LF-walk kernel launched in a run and no plain
-    walk ran on the card there."""
-    print(f"[{tag}] sa_walk launches {launches}; plain walks on the card "
+def walk_launch_check(tag: str, launches: int, calls: list,
+                      plain: dict) -> None:
+    """Raise unless the LF-walk kernel launched once for each recorded
+    sa_batch call of a run that made some (a call with a dense SA is a
+    gather: none there) and no plain walk ran on the card there."""
+    walks = sum(c["dfm"].sa_dense is None for c in calls)
+    print(f"[{tag}] sa_walk launches {launches} for {walks} sa_batch calls "
+          f"on the walk ({len(calls)} in all); plain walks on the card "
           f"{plain['cuda']}")
-    if launches <= 0 or plain["cuda"]:
+    if not walks or launches != walks or plain["cuda"]:
         raise SystemExit(f"{tag}: the LF-walk kernel launched {launches} "
-                         f"times and the plain walk ran {plain['cuda']} "
-                         "times on the card")
+                         f"times for {walks} walks, and the plain walk ran "
+                         f"{plain['cuda']} times on the card")
 
 
 def _held_launch_ms(calls: list, flush) -> float:
-    """Mean device ms of calls[1:] (each one launch; calls[0] warms up),
-    each between its own pair of CUDA events after flush() has evicted
-    the L2, all queued behind a spin kernel that holds the stream while
-    the host enqueues them, so the events time the card, not the host."""
+    """Mean device ms of calls[1:] (calls[0] warms up), each between its
+    own pair of CUDA events after flush() has evicted the L2, all queued
+    behind a spin kernel that holds the stream while the host enqueues
+    them, so the events time the card, not the host."""
     import torch
     calls[0]()
     torch.cuda.synchronize()
@@ -3400,96 +3408,91 @@ def _held_launch_ms(calls: list, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in evs) / len(evs)
 
 
-def _walk_timing(r: dict, lat_ns: float, flush) -> dict:
-    """One recorded walk launch (recorded_walks) timed on the card: the
-    kernel through its launcher on copies of the launch's inputs, a
-    launch of the empty kernel with the same grid, and the plain walk;
-    beside them the bound (walk_work over the plain walk's trace) and
-    the chain floor (the longest lane's steps x lat_ns)."""
+def _call_timing(c: dict, lat_ns: float, flush) -> dict:
+    """One recorded sa_batch call (recorded_sa_batch) timed on the card:
+    the whole call on the kernel (its outputs' and scratch's allocation
+    and zeroing included: what a caller waits for), a launch of the empty
+    kernel with the call's grid, and the plain version; beside them the
+    bound (walk_work over walk_trace) and the chain floor (the longest
+    lane's total steps x lat_ns)."""
     import torch
 
     from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch
-    dfm, mask, T, live = r["dfm"], r["mask"], r["T"], r["live"]
-    copies = [(r["kk"].clone(), r["steps"].clone())
-              for _ in range(WALK_REPS + 1)]
+    dfm, k, T, intv = c["dfm"], c["k"], c["max_iters"], c["intv"]
     ms = _held_launch_ms(
-        [lambda kk=kk, st=st: fm_cuda.lf_walk(dfm, mask, kk, st, T, live)
-         for kk, st in copies], flush)
+        [lambda: fm_torch.sa_batch(dfm, k, T, intv)] * (WALK_REPS + 1),
+        flush)
+    B = k.numel()
+    R = fm_cuda._fn()[1]              # slots, and threads, a block
     empty = _chase_lib().empty_launch
     stream = torch.cuda.current_stream().cuda_stream
-    blocks = -(-r["kk"].numel() // WALK_THREADS)
     launch_ms = _held_launch_ms(
-        [lambda: empty(blocks, WALK_THREADS, stream)] * (WALK_REPS + 1),
-        flush)
-    plain_ms = _time_ms(lambda: fm_torch._lf_walk_plain(
-        dfm, mask, r["kk"].clone(), r["steps"].clone(), T, r["check"],
-        live=live), 1)
-    w = walk_work(r["kk"], live, walk_trace(dfm, mask, r["kk"], T, live),
+        [lambda: empty(-(-B // R), R, stream)] * (WALK_REPS + 1), flush)
+    plain_ms = _time_ms(lambda: fm_torch._sa_walk_plain(dfm, k, T, intv), 1)
+    mask = dfm.sa_intv - 1
+    w = walk_work(k, dfm.sa.element_size(), walk_trace(dfm, k, T, intv),
                   mask, dfm.primary, dfm.seq_len)
     t_bytes = w["bytes"] / HBM_BPS * 1e3
     t_ops = w["ops"] / INT32_OPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms, T=T, **w,
-                bound_ms=max(t_bytes, t_ops),
+    return dict(ms=ms, plain_ms=plain_ms, launch_ms=launch_ms,
+                grid=-(-B // R), **w, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 chain_floor_ms=w["longest"] * lat_ns * 1e-6)
 
 
-def walk_calls_check(tag: str, calls: list, timed: bool, lat_ns: float,
-                     flush) -> list:
-    """Each recorded sa_batch call (recorded_sa_batch) run again on its
-    inputs on the kernel and on the plain walk on the card: every
-    launch's rows and step counts, and the values and overflow flags,
-    must be equal (tolerance 0: integers). With timed, each launch is
-    timed (_walk_timing), and a launch measured below its bound fails
-    the phase. Returns a record per launch."""
+def walk_calls_check(tag: str, calls: list, timed: bool = False,
+                     lat_ns: float = 0.0, flush=None) -> list:
+    """Each recorded sa_batch call (recorded_sa_batch) on the walk run
+    again on its inputs: on the kernel, which must launch once, and on
+    the plain version on the card; the values and the overflow flags
+    must be equal (tolerance 0: integers). With timed, each call is timed
+    (_call_timing), and a call measured below its bound fails the phase.
+    Returns a record per call."""
     import torch
 
-    from bwa_flow_tpu_torch.ops import fm_torch
+    from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch
     out = []
     for ci, c in enumerate(calls):
-        with recorded_walks() as wk:
-            got = fm_torch.sa_batch(c["dfm"], c["k"].clone(),
-                                    c["max_iters"], c["intv"])
-        with plain_walk(), recorded_walks() as wp:
-            want = fm_torch.sa_batch(c["dfm"], c["k"].clone(),
-                                     c["max_iters"], c["intv"])
+        if c["dfm"].sa_dense is not None:
+            continue
+        n0 = fm_cuda.n_launches["sa_walk"]
+        got = fm_torch.sa_batch(c["dfm"], c["k"], c["max_iters"], c["intv"])
+        launches = fm_cuda.n_launches["sa_walk"] - n0
+        want = fm_torch._sa_walk_plain(c["dfm"], c["k"], c["max_iters"],
+                                       c["intv"])
         torch.cuda.synchronize()
         err, bad = _diff(list(got), list(want))
-        if len(wk) != len(wp):
-            bad += 1
-        for li, (a, b) in enumerate(zip(wk, wp)):
-            e, n_bad = _diff(list(a["out"]), list(b["out"]))
-            err, bad = max(err, e), bad + n_bad
-            rec = dict(call=ci, module=c["module"], launch=li,
-                       max_abs_err=e, slots=a["kk"].numel(),
-                       dtype=str(a["kk"].dtype).split(".")[-1])
-            if timed:
-                rec.update(_walk_timing(a, lat_ns, flush))
-            out.append(rec)
-            print(f"[p14] {tag} call {ci} ({c['module']}, {c['k'].numel()} "
-                  f"rows, intv {c['intv']}, budget {c['max_iters']}) "
-                  f"launch {li}: {rec['slots']} slots, {rec['dtype']}, "
-                  f"T {a['T']}; kernel vs plain walk: mismatching values "
-                  f"{n_bad}" + (
-                      f"; {rec['live']} live slots, {rec['walking']} "
-                      f"walking, {rec['dead_on_entry']} dead on entry; "
-                      f"kernel {rec['ms']:.4f} ms, plain "
-                      f"{rec['plain_ms']:.3f} ms, bound "
-                      f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}: "
-                      f"{rec['bytes']} bytes over 3.35 TB/s with "
-                      f"{rec['blocks']} distinct rows, {rec['ops']} int32 "
-                      f"ops over 16.7e12/s for {rec['stepped_rows']} "
-                      f"distinct rows stepped from of {rec['steps']} "
-                      f"steps); longest lane {rec['longest']} steps, chain "
-                      f"floor {rec['chain_floor_ms']:.5f} ms; empty launch "
-                      f"{rec['launch_ms']:.4f} ms" if timed else ""))
-            if timed and rec["ms"] < rec["bound_ms"]:
-                raise SystemExit(f"phase 14 {tag}: a walk launch measured "
-                                 f"{rec['ms']} ms, below its bound "
-                                 f"{rec['bound_ms']} ms: the bound is wrong")
-        if bad:
-            raise SystemExit(f"phase 14 {tag}: sa_batch call {ci} on the "
-                             f"kernel differs from the plain walk ({bad} "
+        rec = dict(call=ci, module=c["module"], max_abs_err=err,
+                   slots=c["k"].numel(), launches=launches,
+                   dtype=str(c["k"].dtype).split(".")[-1],
+                   max_iters=c["max_iters"], intv=c["intv"],
+                   overflow=int(got[1].sum()))
+        if timed:
+            rec.update(_call_timing(c, lat_ns, flush))
+        out.append(rec)
+        print(f"[{tag}] call {ci} ({c['module']}, {rec['slots']} rows, "
+              f"{rec['dtype']}, intv {c['intv']}, budget {c['max_iters']}):"
+              f" {launches} launch, kernel vs plain: mismatching values "
+              f"{bad}, overflow {rec['overflow']}" + (
+                  f"; {rec['walking']} live on entry, "
+                  f"{rec['dead_on_entry']} dead; {rec['grid']} blocks; "
+                  f"call {rec['ms']:.4f} ms, plain "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.5f} "
+                  f"ms ({rec['bound_by']}: {rec['bytes']} bytes over 3.35 "
+                  f"TB/s with {rec['blocks']} distinct rows, {rec['ops']} "
+                  f"int32 ops over 16.7e12/s for {rec['stepped_rows']} "
+                  f"distinct rows stepped from of {rec['steps']} steps); "
+                  f"longest lane {rec['longest']} steps, chain floor "
+                  f"{rec['chain_floor_ms']:.5f} ms; empty launch "
+                  f"{rec['launch_ms']:.4f} ms" if timed else ""))
+        if timed and rec["ms"] < rec["bound_ms"]:
+            raise SystemExit(f"{tag}: an sa_batch call measured "
+                             f"{rec['ms']} ms, below its bound "
+                             f"{rec['bound_ms']} ms: the bound is wrong")
+        if bad or launches != 1:
+            raise SystemExit(f"{tag}: sa_batch call {ci} launched the "
+                             f"kernel {launches} times, or differs from "
+                             f"the plain version on the card ({bad} "
                              f"values, max |err| {err})")
     return out
 
@@ -3542,11 +3545,14 @@ def _device_vs_host(tag: str, ref: str, fqs: list, out: Path,
     return len(_body(dev))
 
 
-def densify_check(work: Path, device: str) -> dict:
+def densify_check(work: Path, device: str, flush) -> dict:
     """Phase 3's index (under 2^28 rows, so it gets a dense SA) with its
-    .tpu.sadense.npy cache not read: _densify_sa on the kernel, then on
-    the plain walk on the card, both timed; the two arrays and phase
-    3's cache must be equal."""
+    .tpu.sadense.npy cache not read: _densify_sa on the kernel (one
+    launch a sa_batch call), then on the plain version on the card, both
+    timed; the two arrays and phase 3's cache must be equal. Each of the
+    kernel run's calls is then held to the plain version on the card,
+    and its first call and its first deep redo (an unphased call) timed
+    (walk_calls_check)."""
     import torch
 
     from bwa_flow_tpu_torch.index.io import load_index
@@ -3564,28 +3570,39 @@ def densify_check(work: Path, device: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
+            calls = stack.enter_context(recorded_sa_batch())
             if tag == "plain":
                 stack.enter_context(plain_walk())
             dense = fm_torch._densify_sa(dfm, fm)
         torch.cuda.synchronize()
         out[tag] = dict(dense=dense, s=time.perf_counter() - t0,
-                        launches=fm_cuda.n_launches["sa_walk"])
+                        launches=fm_cuda.n_launches["sa_walk"], calls=calls)
     want = np.load(cache)
     same = (np.array_equal(out["kernel"]["dense"], out["plain"]["dense"]),
             np.array_equal(out["kernel"]["dense"], want))
+    calls = out["kernel"]["calls"]
     print(f"[p14] densify of phase 3's index ({int(fm.seq_len) + 1} rows, "
           f"sa_intv {fm.sa_intv}): kernel {out['kernel']['s']:.3f} s "
-          f"({out['kernel']['launches']} launches), plain walk on the card "
+          f"({out['kernel']['launches']} launches for {len(calls)} "
+          f"sa_batch calls), plain walk on the card "
           f"{out['plain']['s']:.3f} s; kernel == plain {same[0]}, kernel "
           f"== phase 3's cache {same[1]}")
-    if not all(same) or out["kernel"]["launches"] <= 0 \
-            or out["plain"]["launches"]:
+    if not all(same) or out["kernel"]["launches"] != len(calls) \
+            or not calls or out["plain"]["launches"]:
         raise SystemExit("phase 14: the dense SA on the kernel differs from "
                          "the plain walk's or phase 3's cache, or the "
-                         "walks ran on the wrong version")
+                         "walks ran on the wrong version or launched other "
+                         "than once a call")
+    lat = l2_latency_ns(dfm.fm_blocks.numel() * 4, dfm.device, "p14")
+    timed = [0] + [i for i, c in enumerate(calls) if not c["intv"]][:1]
+    checked = walk_calls_check("p14 densify", [
+        c for i, c in enumerate(calls) if i not in timed])
+    checked += walk_calls_check("p14 densify", [calls[i] for i in timed],
+                                True, lat["ns"], flush)
     return dict(rows=int(fm.seq_len) + 1, kernel_s=out["kernel"]["s"],
                 plain_s=out["plain"]["s"],
-                launches=out["kernel"]["launches"])
+                launches=out["kernel"]["launches"], calls=len(calls),
+                checked=checked, l2_latency=lat)
 
 
 def phase_large_genome(work: Path, device: str) -> dict:
@@ -3609,7 +3626,10 @@ def phase_large_genome(work: Path, device: str) -> dict:
     from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
     from bwa_flow_tpu_torch.utils.opts import MemOpt
 
-    res: dict = {"densify": densify_check(work, device)}
+    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
+                            device=device)
+    flush = (lambda: flush_buf.fill_(1))
+    res: dict = {"densify": densify_check(work, device, flush)}
     big = work / "large"
     big.mkdir()
     t0 = time.perf_counter()
@@ -3641,14 +3661,16 @@ def phase_large_genome(work: Path, device: str) -> dict:
         se = _native_run("large SE", base + [
             "-o", str(big / "full.sam"), ref, str(big / "reads.fq")],
             n=BIG_READS, phase="p14")
-    walk_launch_check("p14 large SE", se["walk_launches"], plain)
+    walk_launch_check("p14 large SE", se["walk_launches"], se_calls, plain)
     res["se"] = se
     res["se_map"] = _mapping(big / "full.sam", BIG_READS, False, "large SE")
-    with plain_walk_calls() as plain:
+    with recorded_sa_batch() as pe_calls, plain_walk_calls() as plain:
         pe = _native_run("large PE", base + [
             "-o", str(big / "pe.sam"), ref, str(big / "r1.fq"),
             str(big / "r2.fq")], n=BIG_PAIRS, phase="p14")
-    walk_launch_check("p14 large PE", pe["walk_launches"], plain)
+    walk_launch_check("p14 large PE", pe["walk_launches"], pe_calls, plain)
+    res["pe_walk"] = walk_calls_check("p14 PE walk", pe_calls)
+    del pe_calls
     res["pe"] = pe
     res["pe_map"] = _mapping(big / "pe.sam", BIG_PAIRS, True, "large PE")
     _device_vs_host(f"{BIG_SUB}-read subset", ref, [str(big / "sub.fq")],
@@ -3662,18 +3684,15 @@ def phase_large_genome(work: Path, device: str) -> dict:
     if dfm is None or dfm.sa_dense is not None:
         raise SystemExit("phase 14: the SE run made no LF walk")
     lat = l2_latency_ns(dfm.fm_blocks.numel() * 4, dfm.device, "p14")
-    flush_buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32,
-                            device=dfm.device)
-    flush = (lambda: flush_buf.fill_(1))
     print(f"[p14] the SE run's sa_batch calls: "
           f"{[(c['module'], c['k'].numel()) for c in se_calls]}")
     res["seed_walk"] = walk_calls_check(
-        "seed walk", [c for c in se_calls if c["module"] == "smem_torch"],
+        "p14 seed walk", [c for c in se_calls
+                          if c["module"] == "smem_torch"],
         True, lat["ns"], flush)
     res["other_walks"] = walk_calls_check(
-        "probe walks of the SE run",
-        [c for c in se_calls if c["module"] != "smem_torch"], False,
-        lat["ns"], flush)
+        "p14 probe walks of the SE run",
+        [c for c in se_calls if c["module"] != "smem_torch"])
     del se_calls
 
     # the probe path on a batch's own intervals, every probe walked
@@ -3706,8 +3725,11 @@ def phase_large_genome(work: Path, device: str) -> dict:
                          "from the plain walk or the fused values")
     res["probe"] = dict(probes=len(vals), fused=fused, sa_host_redo=redo,
                         widths=[c["k"].numel() for c in probe_calls])
-    res["probe_walk"] = walk_calls_check("probe chunk", probe_calls[:1],
-                                         True, lat["ns"], flush)
+    res["probe_walk"] = walk_calls_check("p14 probe chunk",
+                                         probe_calls[:1], True, lat["ns"],
+                                         flush)
+    res["probe_walk"] += walk_calls_check("p14 probe chunk",
+                                          probe_calls[1:])
     del probe_calls
 
     reads = seeds_dispatch_reads(ba, seqs)
@@ -3898,19 +3920,25 @@ def main() -> int:
                                  for t, r in seed_paths.items()},
             "calls": k["calls"]})
     # the LF walk: launches on the large genome's SE run (the CLI's
-    # default route; the seed program's fused walk), ms, plain_ms,
-    # bound_ms, chain floor and a launch's own cost a launch's mean over
-    # that run's seed-walk launches (phase 14)
+    # default route; the seed program's fused walk, one launch a call),
+    # ms (a whole sa_batch call), plain_ms, bound_ms, chain floor and an
+    # empty launch of the call's grid: a call's mean over that run's
+    # seed-walk calls (phase 14)
     sw = gres["seed_walk"]
-    checked = sw + gres["other_walks"] + gres["probe_walk"]
+    checked = (sw + gres["other_walks"] + gres["probe_walk"]
+               + gres["pe_walk"] + gres["densify"]["checked"]
+               + yres["no_dense_sa"]["walk_calls"]
+               + hres["resample"]["walk_calls"])
     kernels.append({
         "name": "sa_walk", "route": "cuda",
         "source": "bwa_flow_tpu_torch/csrc/sa_walk.cu",
         "replaces": "bwa_flow_tpu/ops/fm_jax.py:338",
         "replaces_kernel": "bwa_flow_tpu/ops/fm_jax.py::_lf_walk_fixed, "
-                           "and sa_batch's while_loops at :438 and :457",
+                           "sa_batch's while_loops at :438 and :457 and "
+                           "compact_pool at :409",
         "checked": True, "launches": gres["se"]["walk_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in checked),
+        "calls_checked": len(checked),
         "ms": _mean(sw, "ms"), "plain_ms": _mean(sw, "plain_ms"),
         "bound_ms": _mean(sw, "bound_ms"),
         "bound_by": max(sw, key=lambda r: r["bound_ms"])["bound_by"],
@@ -3918,14 +3946,22 @@ def main() -> int:
         "launch_cost_ms": _mean(sw, "launch_ms"),
         "hbm_latency_ns": gres["hbm_latency"]["ns"],
         "ptxas": ptxas["sa_walk"],
+        "redesigned": "one launch a sa_batch call (every phase and "
+                      "pool), a block's live lanes queued in shared memory "
+                      "in lane order, exact pool ranks by a decoupled "
+                      "look-back",
         "launches_by_path": {
             "large_se": gres["se"]["walk_launches"],
             "large_pe": gres["pe"]["walk_launches"],
             "p9_no_dense_sa": yres["no_dense_sa"]["walk_launches"],
             "p11_resampled": hres["resample"]["walk_launches"],
             "densify_4_6_mbp": gres["densify"]["launches"]},
-        "calls": {"seed_walk": sw, "probe_chunk": gres["probe_walk"]},
-        "densify": gres["densify"], "probe": gres["probe"]})
+        "calls": {"seed_walk": sw, "probe_chunk": gres["probe_walk"][:1],
+                  "densify": [r for r in gres["densify"]["checked"]
+                              if "ms" in r]},
+        "densify": {k: v for k, v in gres["densify"].items()
+                    if k != "checked"},
+        "probe": gres["probe"]})
     kernels[0]["sort_path_device_ms"] = sres["path"]["device_ms"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     bres["max_abs_err"])

@@ -1,19 +1,21 @@
 """The LF walk's callers on the kernel's code, on the CPU, and the bound
-chip_smoke.py puts beside each walk launch.
+chip_smoke.py puts beside each sa_batch call.
 
 Here the sa_walk kernel's own code runs behind ops/fm_cuda.py: the host
 harness of tests/test_torch_sa_walk_host.py (csrc/sa_walk.cuh compiled
-with the host's c++, run for every slot of a launch) stands in for the
-card's launcher, and fm_torch._on_card sends CPU tensors to it. So the
-wrapper's handling around the kernel runs as on the card: the first
-walk in place on a copy of the caller's rows, the pools' live counts
-read by the kernel, the padding slots left as they are and scattered
-into the sink slot. sa_batch (phased and unphased, narrow and wide, full
-B/4 and B/16 pools at B=64, lane 0 live in pools that are not full),
+with the host's c++, its logical blocks run one after another in ticket
+order, a block's threads as host threads, blocks of 32 slots so a call
+spans many blocks) stands in for the card's launcher, and
+fm_torch._on_card sends CPU tensors to it. So the wrapper's handling
+around the kernel runs as on the card: one launch a sa_batch call, the
+outputs and the call's scratch allocated by the launcher, the caller's
+rows left as they were. sa_batch (phased and unphased, narrow and wide,
+full B/4 and B/16 pools at B=64, both pools filling across block
+boundaries at B=1024, lane 0 live in pools that are not full),
 _densify_sa and the seed program on an index re-sampled to interval 4
 are held to the JAX package's, exactly; on the card's path the walk
-reads nothing (a fetch that raises), and with no nvcc the wrapper
-raises for the card."""
+reads nothing (a fetch that raises), and with no nvcc the wrapper raises
+for the card."""
 
 import contextlib
 
@@ -46,14 +48,15 @@ def lib(tmp_path_factory):
 @pytest.fixture
 def on_harness(lib, monkeypatch):
     """CPU tensors take the kernel's path, with the harness as the
-    card's launcher; the plain walk must not run."""
+    card's launcher (blocks of 32 slots); the plain walk must not run.
+    Returns the count of launches since."""
     monkeypatch.setattr(fm_torch, "_on_card", lambda t, who: True)
     monkeypatch.setattr(fm_cuda, "_device", lambda t: t.device)
     monkeypatch.setattr(fm_cuda, "_fn", lambda: (
-        lib.sa_walk_launch, lib.sa_walk_error_string))
+        lib.sa_walk_launch, lib.sa_walk_slots(), lib.sa_walk_error_string))
     monkeypatch.setattr(fm_cuda, "_on_device",
                         lambda dev: contextlib.nullcontext(None))
-    monkeypatch.setattr(fm_torch, "_lf_walk_plain", lambda *a, **k:
+    monkeypatch.setattr(fm_torch, "_sa_walk_plain", lambda *a, **k:
                         pytest.fail("the plain walk ran on the card's path"))
     before = fm_cuda.n_launches["sa_walk"]
     return lambda: fm_cuda.n_launches["sa_walk"] - before
@@ -84,7 +87,11 @@ def _rows(idx, case: str) -> np.ndarray:
     rows longer than 6 intervals first, then 24 longer than 2, so both
     pools fill and lanes drop); "lane0_live" (B=64: lane 0 longer than 6
     intervals, two more longer than 2, the rest shorter, so lane 0 is
-    live in two pools that are not full)."""
+    live in two pools that are not full); "multi_block" (B=1024: 300
+    rows longer than 2 intervals, more than the B/4 pool of 256, 80 of
+    them longer than 6, more than the B/16 pool of 64, at random places,
+    so with blocks of 32 slots both pools fill in a middle block and
+    drop lanes from it and every later block)."""
     rng = np.random.default_rng(len(case))
     length, intv = idx["length"], int(idx["fm"].sa_intv)
     if case == "random":
@@ -97,13 +104,20 @@ def _rows(idx, case: str) -> np.ndarray:
         return np.concatenate([rng.choice(long6, 8, replace=False),
                                rng.choice(long2, 24, replace=False),
                                rng.choice(short, 32, replace=False)])
+    if case == "multi_block":
+        k = rng.choice(short, 1024)
+        at = rng.permutation(1024)[:300]
+        k[at[:80]] = rng.choice(long6, 80)
+        k[at[80:]] = rng.choice(long2, 220)
+        return k
     return np.concatenate([rng.choice(long6, 1), rng.choice(long2, 2),
                            rng.choice(short, 61, replace=False)])
 
 
 @pytest.mark.parametrize("width", ["narrow", "wide"])
 @pytest.mark.parametrize("intv", ["phased", "unphased"])
-@pytest.mark.parametrize("case", ["random", "full_pools", "lane0_live"])
+@pytest.mark.parametrize("case", ["random", "full_pools", "lane0_live",
+                                  "multi_block"])
 def test_sa_batch_on_the_kernel_equals_jax(idx, on_harness, case, intv,
                                            width):
     fm = idx["fm"]
@@ -117,8 +131,8 @@ def test_sa_batch_on_the_kernel_equals_jax(idx, on_harness, case, intv,
                                intv)
         np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
         np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    # three launches a phased call, one an unphased one: two calls
-    assert on_harness() == (6 if intv else 2)
+    # one launch a call: two calls
+    assert on_harness() == 2
     ovf = got[1].numpy()
     exact = np.array([jfmops.bwt_sa(fm, int(k)) for k in ks])
     assert ((got[0].numpy() == exact) | ovf).all()
@@ -129,6 +143,15 @@ def test_sa_batch_on_the_kernel_equals_jax(idx, on_harness, case, intv,
         # overflow: 32 survive 2 intervals into the B/4 pool of 16, and 8
         # of its 16 survive 6 into the B/16 pool of 4
         assert ovf.sum() == (20 if intv else 0)
+        assert ((vals.numpy() == exact) | ovf.numpy()).all()
+    if case == "multi_block" and intv:
+        # the last 44 of the 300 lanes past 2 intervals drop from the B/4
+        # pool; of those still live after it, the first 64 walk the B/16
+        # pool: the rest overflow, and no lane shorter than 2 intervals
+        vals, ovf = fm_torch.sa_batch(idx["torch"][width],
+                                      torch.as_tensor(ks), 4096, intv)
+        length = idx["length"][ks]
+        assert ovf.sum() > 0 and not ovf.numpy()[length <= 2 * intv].any()
         assert ((vals.numpy() == exact) | ovf.numpy()).all()
     if case == "lane0_live":
         vals, ovf = fm_torch.sa_batch(idx["torch"][width],
@@ -144,10 +167,15 @@ def test_sa_batch_leaves_the_callers_rows(idx, on_harness):
     assert torch.equal(ks, keep)
 
 
-def test_densify_sa_on_the_kernel_equals_jax(idx, on_harness):
+def test_densify_sa_on_the_kernel_equals_jax(idx, on_harness, monkeypatch):
     fm = idx["fm"]
+    calls = []
+    real = fm_torch.sa_batch
+    monkeypatch.setattr(fm_torch, "sa_batch", lambda *a: calls.append(
+        a[3]) or real(*a))
     got = fm_torch._densify_sa(idx["torch"]["wide"], fm)
-    assert on_harness() >= 3
+    # one launch a call: each chunk, and the deep redo if one ran
+    assert on_harness() == len(calls) >= 1 and calls[0] == fm.sa_intv
     want = fm_jax._densify_sa(idx["jax"]["wide"], fm)
     np.testing.assert_array_equal(got, np.asarray(want))
 
@@ -188,7 +216,7 @@ def test_seed_program_on_a_resampled_index_equals_jax(resampled, on_harness,
         dt.narrow() if narrow else dt, 128, 64, 128, 128 * 16,
         torch.as_tensor(q), torch.as_tensor(qlen),
         *smem_torch._opt_params(opt), sa_intv_s=4, **kw)
-    assert on_harness() == 3
+    assert on_harness() == 1
     assert len(oj) == len(ot)
     for a, b in zip(oj, ot):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
@@ -200,7 +228,7 @@ def test_walk_on_the_card_launches_or_raises(idx, monkeypatch):
     CPU tensors; a tensor on another device raises."""
     dt = idx["torch"]["wide"]
     ks = torch.as_tensor(_rows(idx, "random"))
-    monkeypatch.setattr(fm_torch, "_lf_walk_plain", lambda *a, **k:
+    monkeypatch.setattr(fm_torch, "_sa_walk_plain", lambda *a, **k:
                         pytest.fail("the plain walk ran"))
     monkeypatch.setattr(fm_torch, "_on_card", lambda t, who: True)
     with pytest.raises(ValueError, match="tensors must be on a CUDA"):
@@ -215,7 +243,7 @@ def test_walk_on_the_card_launches_or_raises(idx, monkeypatch):
     assert fm_cuda.n_launches == before
     monkeypatch.undo()
     with pytest.raises(ValueError, match="expected cuda"):
-        fm_torch._on_card(torch.empty(4, device="meta"), "_lf_walk")
+        fm_torch._on_card(torch.empty(4, device="meta"), "sa_batch")
 
 
 def test_walk_on_the_cpu_takes_the_plain_version(idx):
@@ -231,51 +259,51 @@ def test_walk_on_the_cpu_takes_the_plain_version(idx):
 # ------------------------------------------------------- the walk's bound
 
 def test_walk_work_counts_distinct_rows_and_chains_once():
-    """chip_smoke.walk_work on a hand-made launch: 8 slots, the first 6
-    hold lanes (live count 6), 2 are padding. Lanes (rows, sa_intv 4 so
-    mask 3): 5, 5 (a duplicate start), 130, 8 (dead on entry: 8 & 3 ==
-    0), 70, and 129, which is where lane 0's chain goes after one step.
-    Hand-made trace (the rows each step starts from), primary 10:
-      step 1: 5, 5, 130, 70, 129
-      step 2: 129, 129, 63, 66      (lanes 0 and 1 reach 129)
-      step 3: 66, 66, 67            (lane 5: 129 -> 66 like lanes 0, 1)
-    Distinct rows stepped from: 5, 130, 70, 129, 63, 66, 67 = 7.
-    Their fm_blocks rows ((row - (row >= 10)) // 64): 5 -> 0, 130 ->
-    2 (129), 70 -> 1 (69), 129 -> 2 (128), 63 -> 0 (62), 66 -> 1 (65),
-    67 -> 1 (66): distinct 0, 1, 2 = 3, 96 bytes. Lanes that walk: 5; dead on
-    entry: 1; int32: 5 x 16 + 1 x 4 = 84 bytes; in all 180 bytes.
-    Operations: 7 x OPS_PER_LF. Longest lane: 3 steps; 12 steps."""
-    kk0 = torch.tensor([5, 5, 130, 8, 70, 129, 5, 5], dtype=torch.int32)
-    trace = [torch.tensor(r, dtype=torch.int32) for r in (
-        [5, 5, 130, 70, 129], [129, 129, 63, 66], [66, 66, 67])]
-    w = chip_smoke.walk_work(kk0, torch.tensor([6], dtype=torch.int32),
-                             trace, 3, 10, 1000)
-    assert w == dict(slots=8, live=6, walking=5, dead_on_entry=1, blocks=3,
-                     stepped_rows=7, steps=12, longest=3, bytes=180,
-                     ops=7 * chip_smoke.OPS_PER_LF)
-    # wide rows: 8 bytes a row and a step count
-    w64 = chip_smoke.walk_work(kk0.long(), 6, trace, 3, 10, 1000)
-    assert w64["bytes"] == 96 + 5 * 32 + 8
-    # no live count: every slot holds a lane (both padding copies of
-    # lane 0 walk, the same rows, so the trace and its counts hold)
-    wall = chip_smoke.walk_work(kk0, None, trace, 3, 10, 1000)
-    assert (wall["walking"], wall["dead_on_entry"], wall["bytes"]) == \
-        (7, 1, 96 + 7 * 16 + 4)
+    """chip_smoke.walk_work on a call worked out by hand: 8 slots, rows
+    (sa_intv 4, so mask 3) 5, 5, 130, 8 (dead on entry: 8 & 3 == 0), 70,
+    129, 5, 5; primary 10. The LF chains, made up: 5 -> 129 -> 66 -> a
+    sampled row, 130 -> 63 -> a sampled row, 70 -> 66, 129 -> 66. The
+    rows each step starts from:
+      step 1: 5, 5, 130, 70, 129, 5, 5
+      step 2: 129, 129, 63, 66, 66, 129, 129
+      step 3: 66, 66, 66, 66          (lanes 0, 1, 6, 7)
+    Each lane's steps: 3, 3, 2, 0, 2, 2, 3, 3 (18 in all, the longest
+    3). Distinct rows stepped from: 5, 130, 70, 129, 63, 66 = 6. Their
+    fm_blocks rows ((row - (row >= 10)) // 64): 5 -> 0, 130 -> 2 (129),
+    70 -> 1 (69), 129 -> 2 (128), 63 -> 0 (62), 66 -> 1 (65): 0, 1, 2 =
+    3, 96 bytes. Int32 rows and samples: 8 x (4 rows + 9 out + 4
+    samples) = 136 bytes, in all 232. Operations: 6 x OPS_PER_LF."""
+    k = torch.tensor([5, 5, 130, 8, 70, 129, 5, 5], dtype=torch.int32)
+    trace = dict(rows=[torch.tensor(r, dtype=torch.int32) for r in (
+        [5, 5, 130, 70, 129, 5, 5], [129, 129, 63, 66, 66, 129, 129],
+        [66, 66, 66, 66])], steps=torch.tensor([3, 3, 2, 0, 2, 2, 3, 3]))
+    w = chip_smoke.walk_work(k, 4, trace, 3, 10, 1000)
+    assert w == dict(slots=8, walking=7, dead_on_entry=1, blocks=3,
+                     stepped_rows=6, steps=18, longest=3, bytes=232,
+                     ops=6 * chip_smoke.OPS_PER_LF)
+    # wide rows: 8 bytes a row; an int64 sampled SA: 8 bytes a sample
+    assert chip_smoke.walk_work(k.long(), 4, trace, 3, 10, 1000)[
+        "bytes"] == 96 + 8 * (8 + 9 + 4)
+    assert chip_smoke.walk_work(k.long(), 8, trace, 3, 10, 1000)[
+        "bytes"] == 96 + 8 * (8 + 9 + 8)
 
 
-def test_walk_trace_is_the_plain_walks_steps(idx):
-    """walk_trace's rows are the rows the plain walk steps from: lane by
-    lane they sum to the walk's steps, and padding slots take none."""
+@pytest.mark.parametrize("case", ["full_pools", "multi_block"])
+def test_walk_trace_is_the_plain_walks_steps(idx, case):
+    """walk_trace follows the plain version lane by lane through the
+    phases: its steps and last rows give the plain version's values and
+    overflow flags, its rows sum to its steps, and the pools' padding
+    copies of lane 0 take no steps of their own."""
     dt = idx["torch"]["wide"]
     mask = int(idx["fm"].sa_intv) - 1
-    kk = torch.as_tensor(_rows(idx, "full_pools"))
-    live = torch.tensor([40], dtype=torch.int32)
-    trace = chip_smoke.walk_trace(dt, mask, kk, 64, live)
-    _, steps = fm_torch._lf_walk_plain(dt, mask, kk, torch.zeros_like(kk),
-                                       64, live=live)
-    assert sum(len(t) for t in trace) == int(steps.sum())
-    assert int(steps[40:].sum()) == 0
-    assert len(trace) == int(steps.max())
-    w = chip_smoke.walk_work(kk, live, trace, mask, dt.primary, dt.seq_len)
-    assert w["steps"] == int(steps.sum()) and w["walking"] == int(
-        ((kk[:40] & mask) != 0).sum())
+    k = torch.as_tensor(_rows(idx, case))
+    intv = int(idx["fm"].sa_intv)
+    tr = chip_smoke.walk_trace(dt, k, 256, intv)
+    sa, ovf = fm_torch._sa_walk_plain(dt, k, 256, intv)
+    j = (tr["k"] // dt.sa_intv).clamp(0, dt.sa.numel() - 1)
+    assert torch.equal(tr["steps"] + dt.sa[j], sa)
+    assert torch.equal((tr["k"] & mask) != 0, ovf) and ovf.any()
+    assert sum(len(r) for r in tr["rows"]) == int(tr["steps"].sum())
+    w = chip_smoke.walk_work(k, 4, tr, mask, dt.primary, dt.seq_len)
+    assert w["longest"] == int(tr["steps"].max()) > 6 * intv
+    assert w["walking"] == int(((k & mask) != 0).sum())
