@@ -16,6 +16,7 @@
 #include <Python.h>
 
 #include <algorithm>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -1088,6 +1089,23 @@ void mem_pair(const Opt& o, const Bns& bns, const PeStatC pes[4],
 // mem_sam_pe (golden: pe.py:246-374 over pair.c:253-396)
 // ------------------------------------------------------------------
 
+// A tail batch's phase times on the steady clock: each lap() charges the
+// time since the previous one to a phase. The PE tail laps three times a
+// pair, the SE tail twice a read; nothing inside a phase reads the clock.
+enum TailPhase { T_DEDUP = 0, T_RESCUE, T_PAIR, T_SAM, T_NPHASE };
+
+struct TailClock {
+  using Clock = std::chrono::steady_clock;
+  Clock::time_point last = Clock::now();
+  int64_t ns[T_NPHASE] = {0, 0, 0, 0};
+  void lap(TailPhase p) {
+    Clock::time_point t = Clock::now();
+    ns[p] += std::chrono::duration_cast<std::chrono::nanoseconds>(
+                 t - last).count();
+    last = t;
+  }
+};
+
 struct PeRead {
   std::string name;
   int32_t l_seq;
@@ -1097,9 +1115,12 @@ struct PeRead {
   std::string sam;
 };
 
+// Returns the ksw_align2 calls of its mate rescue. Laps `clk` after the
+// rescue and after the paired/unpaired decision; the caller laps the SAM.
 int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
            const PeStatC pes[4], uint64_t rid_, PeRead s[2],
-           std::vector<Reg> a[2], const std::string& rg_id) {
+           std::vector<Reg> a[2], const std::string& rg_id,
+           TailClock* clk) {
   int n = 0;
   int32_t extra_flag = 1;
   if (!(o.flag & F_NO_RESCUE)) {
@@ -1114,6 +1135,7 @@ int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
         n += matesw(o, po, bns, pes, b[i][j], s[1 - i].l_seq,
                     s[1 - i].seq, a[1 - i]);
   }
+  clk->lap(T_RESCUE);
   int64_t n_pri[2];
   n_pri[0] = mark_primary_se(o, a[0], (int64_t)((rid_ << 1) | 0));
   n_pri[1] = mark_primary_se(o, a[1], (int64_t)((rid_ << 1) | 1));
@@ -1135,6 +1157,7 @@ int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
             break;
           }
       if (!is_multi[0] && !is_multi[1]) {
+        clk->lap(T_PAIR);
         // ------- paired emission (golden pe.py:_sam_pe_paired) -------
         int64_t score_un = a[0][0].score + a[1][0].score - po.pen_unpaired;
         subo = std::max(subo, score_un);
@@ -1212,6 +1235,7 @@ int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
     }
   }
   // ------- unpaired emission (golden pe.py:_sam_pe_unpaired) -------
+  clk->lap(T_PAIR);
   AlnT h[2];
   for (int i = 0; i < 2; ++i) {
     int64_t which = -1;
@@ -1284,7 +1308,8 @@ void load_regs(const int64_t* rows, const double* fr, int64_t lo,
 //               ann_name_cat bytes, ann_name_off i64[nc+1],
 //               rg_id bytes, opt_ints i64[14], opt_floats f64[5],
 //               mat i8[25])
-//  -> list[bytes] SAM text per read
+//  -> (list[bytes] SAM text per read,
+//      counters i64[2] bytes: ns in dedup, ns in SAM)
 PyObject* py_se_tail_batch(PyObject*, PyObject* args) {
   PyObject *seq_o, *seqoff_o, *qual_o, *name_o, *nameoff_o, *com_o,
       *comoff_o, *ids_o, *regs_o, *frac_o, *regoff_o, *pac_o, *annoff_o,
@@ -1359,7 +1384,9 @@ PyObject* py_se_tail_batch(PyObject*, PyObject* args) {
   int64_t n = (int64_t)(bufs[6].len / sizeof(int64_t));
 
   std::vector<std::string> sams((size_t)n);
+  int64_t counters[2];
   Py_BEGIN_ALLOW_THREADS
+  TailClock clk;
   std::vector<Reg> regs;
   for (int64_t r = 0; r < n; ++r) {
     const uint8_t* seq = seq_cat + seq_off[r];
@@ -1368,6 +1395,7 @@ PyObject* py_se_tail_batch(PyObject*, PyObject* args) {
     dedup_patch(opt, bns, seq, regs);
     for (Reg& p : regs)
       if (p.rid >= 0 && ann_alt[p.rid]) p.is_alt = 1;
+    clk.lap(T_DEDUP);
     mark_primary_se(opt, regs, ids[r]);
     if (opt.flag & F_PRIMARY5) reorder_primary5(opt.T, regs);
     std::string name(name_cat + name_off[r], name_cat + name_off[r + 1]);
@@ -1375,7 +1403,10 @@ PyObject* py_se_tail_batch(PyObject*, PyObject* args) {
     reg2sam_se(opt, bns, name, l_seq, seq,
                has_qual ? qual_cat + seq_off[r] : nullptr, comment, regs,
                rg_id, &sams[r]);
+    clk.lap(T_SAM);
   }
+  counters[0] = clk.ns[T_DEDUP];
+  counters[1] = clk.ns[T_SAM];
   Py_END_ALLOW_THREADS
 
   PyObject* out = PyList_New((Py_ssize_t)n);
@@ -1385,7 +1416,9 @@ PyObject* py_se_tail_batch(PyObject*, PyObject* args) {
                                               (Py_ssize_t)sams[r].size()));
   for (int j = 0; j < NB; ++j) PyBuffer_Release(&bufs[j]);
   if (has_qual) PyBuffer_Release(&qualb);
-  return out;
+  return Py_BuildValue(
+      "(NN)", out,
+      PyBytes_FromStringAndSize((const char*)counters, sizeof counters));
 }
 
 // dedup_batch: dedup/patch only (phase 1 of the PE tail; pestat must see
@@ -1489,7 +1522,10 @@ PyObject* py_dedup_batch(PyObject*, PyObject* args) {
 //               rg_id y#, opt_ints i64[14], opt_floats f64[5], mat i8[25],
 //               pe_ints i64[3] (pen_unpaired, max_matesw, max_ins),
 //               pes f64[20]|None (low, high, failed, avg, std x4))
-//  -> (list[bytes] SAM per read, pes_out f64[20] bytes)
+//  -> (list[bytes] SAM per read, pes_out f64[20] bytes,
+//      counters i64[6] bytes: ns in dedup (phase 1 and the insert-size
+//      estimate), in mate rescue, in pairing, in SAM (the records and the
+//      per-pair loads); ksw_align2 calls of the rescue; pairs)
 PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
   PyObject *seq_o, *seqoff_o, *qual_o, *name_o, *nameoff_o, *com_o,
       *comoff_o, *ids_o, *regs_o, *frac_o, *regoff_o, *pac_o, *annoff_o,
@@ -1578,7 +1614,10 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
 
   std::vector<std::string> sams((size_t)n);
   double pes_out[20];
+  int64_t counters[6];
   Py_BEGIN_ALLOW_THREADS
+  TailClock clk;
+  int64_t n_matesw = 0;
   // phase 1: dedup + ALT flags for every read
   std::vector<std::vector<Reg>> all((size_t)n);
   for (int64_t r = 0; r < n; ++r) {
@@ -1608,6 +1647,7 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
     pes_out[d * 5 + 3] = pes[d].avg;
     pes_out[d * 5 + 4] = pes[d].stdv;
   }
+  clk.lap(T_DEDUP);
   // phase 3: per-pair rescue + pairing + SAM
   for (int64_t i = 0; i < n / 2; ++i) {
     PeRead rd[2];
@@ -1622,10 +1662,15 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
       a2[j] = std::move(all[r]);
     }
     uint64_t pair_id = (uint64_t)(ids[2 * i] >> 1);
-    sam_pe(opt, po, bns, pes, pair_id, rd, a2, rg_id);
+    clk.lap(T_SAM);  // the previous pair's records and this pair's loads
+    n_matesw += sam_pe(opt, po, bns, pes, pair_id, rd, a2, rg_id, &clk);
     sams[2 * i] = std::move(rd[0].sam);
     sams[2 * i + 1] = std::move(rd[1].sam);
   }
+  clk.lap(T_SAM);
+  for (int p = 0; p < T_NPHASE; ++p) counters[p] = clk.ns[p];
+  counters[4] = n_matesw;
+  counters[5] = n / 2;
   Py_END_ALLOW_THREADS
 
   PyObject* out = PyList_New((Py_ssize_t)n);
@@ -1637,8 +1682,9 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
   if (has_qual) PyBuffer_Release(&qualb);
   if (has_pes0) PyBuffer_Release(&pesb);
   return Py_BuildValue(
-      "(NN)", out,
-      PyBytes_FromStringAndSize((const char*)pes_out, sizeof pes_out));
+      "(NNN)", out,
+      PyBytes_FromStringAndSize((const char*)pes_out, sizeof pes_out),
+      PyBytes_FromStringAndSize((const char*)counters, sizeof counters));
 }
 
 PyMethodDef methods[] = {

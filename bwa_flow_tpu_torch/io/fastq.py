@@ -106,7 +106,21 @@ def read_batches(path1, path2=None, chunk_bp: int = 10_000_000,
                  interleaved: bool = False, start_id: int = 0
                  ) -> Iterator[list[Read]]:
     """Yield batches of reads up to ~chunk_bp bases (PE: interleaved in
-    the batch, always an even count)."""
+    the batch, always an even count). Each batch's parse is the tracer's
+    span `parse`, closed before the batch is yielded, so the time the
+    consumer holds the generator suspended is not counted."""
+    from ..utils.trace import GLOBAL as tracer
+    it = _batches(path1, path2, chunk_bp, interleaved, start_id)
+    while True:
+        with tracer.span("parse"):
+            batch = next(it, None)
+        if batch is None:
+            return
+        yield batch
+
+
+def _batches(path1, path2, chunk_bp: int, interleaved: bool, start_id: int
+             ) -> Iterator[list[Read]]:
     n_id = start_id
     if path2 is not None:
         it1, it2 = read_seqs(path1), read_seqs(path2)

@@ -154,18 +154,35 @@ def _regs_arrays(reg_lists, packed):
     return np.ascontiguousarray(rows), frac, off
 
 
+_TAIL_PHASES = ("dedup", "rescue", "pair", "sam")
+
+
+def _count(counters: dict | None, names, values) -> None:
+    """Add a native tail's counters to `counters`: the phases' seconds
+    (the C++ gives nanoseconds) under their names, then the counts."""
+    if counters is None:
+        return
+    for k, v in zip(names, values):
+        v = float(v) * 1e-9 if k in _TAIL_PHASES else int(v)
+        counters[k] = counters.get(k, 0) + v
+
+
 def se_tail_batch(opt: MemOpt, fm: FMIndex, reads, reg_lists,
-                  rg_id: str = "", packed=None) -> list[str]:
+                  rg_id: str = "", packed=None,
+                  counters: dict | None = None) -> list[str]:
     """SAM text per read: dedup + alt flags + primary + (-5 reorder) +
     reg2sam, all native. `packed=(rows, frac, off)` skips AlnReg
-    marshaling entirely (native wave driver output feeds straight in)."""
+    marshaling entirely (native wave driver output feeds straight in).
+    `counters`, if given, gains the seconds the C++ spent in "dedup" and
+    in "sam" (primary marking and the records)."""
     rows, frac, off = _regs_arrays(reg_lists, packed)
     b = bns_arrays(fm)
     opti, optf, mat = _opt_arrays(opt)
-    sams = ext().se_tail_batch(
+    sams, ctr = ext().se_tail_batch(
         *_read_arrays(reads), rows, frac, off, b["pac"], fm.bns.l_pac,
         b["ann_off"], b["ann_alt"], b["name_cat"], b["name_off"],
         rg_id.encode(), opti, optf, mat)
+    _count(counters, ("dedup", "sam"), np.frombuffer(ctr, np.int64))
     return [s.decode() for s in sams]
 
 
@@ -196,10 +213,14 @@ def _pes_array(pes) -> np.ndarray:
 
 
 def pe_tail_batch(opt: MemOpt, fm: FMIndex, reads, reg_lists,
-                  rg_id: str = "", packed=None, pes0=None):
+                  rg_id: str = "", packed=None, pes0=None,
+                  counters: dict | None = None):
     """PE tail fully native: dedup + per-batch pestat + mate rescue +
     pairing + SAM for interleaved pairs; GIL released throughout.
-    Returns (sams list[str], pes list[PeStat] actually used)."""
+    Returns (sams list[str], pes list[PeStat] actually used).
+    `counters`, if given, gains the seconds the C++ spent in "dedup"
+    (with the insert-size estimate), "rescue", "pair" and "sam", the
+    rescue's ksw_align2 calls ("matesw") and the pairs ("pairs")."""
     from .pe import PeStat
     rows, frac, off = _regs_arrays(reg_lists, packed)
     b = bns_arrays(fm)
@@ -207,10 +228,12 @@ def pe_tail_batch(opt: MemOpt, fm: FMIndex, reads, reg_lists,
     pe_ints = np.array([opt.pen_unpaired, opt.max_matesw, opt.max_ins],
                        np.int64)
     pes_in = _pes_array(pes0) if pes0 is not None else None
-    sams, pes_b = ext().pe_tail_batch(
+    sams, pes_b, ctr = ext().pe_tail_batch(
         *_read_arrays(reads), rows, frac, off, b["pac"], fm.bns.l_pac,
         b["ann_off"], b["ann_alt"], b["name_cat"], b["name_off"],
         rg_id.encode(), opti, optf, mat, pe_ints, pes_in)
+    _count(counters, _TAIL_PHASES + ("matesw", "pairs"),
+           np.frombuffer(ctr, np.int64))
     pv = np.frombuffer(pes_b, np.float64)
     pes_used = [PeStat(low=int(pv[d * 5]), high=int(pv[d * 5 + 1]),
                        failed=int(pv[d * 5 + 2]), avg=float(pv[d * 5 + 3]),

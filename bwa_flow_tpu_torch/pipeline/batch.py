@@ -332,6 +332,11 @@ class BatchAligner:
                       "enqueue_post_redo": 0, "enqueue_post_dispatch": 0,
                       "enqueue_late": 0,
                       "seed_downgrades": 0,
+                      # the native tails' mate rescue (ksw_align2 calls)
+                      # and pairs (AlignPipeline._record_tail), and the
+                      # harvesters' steals that found nothing to run
+                      "tail_matesw": 0, "tail_pairs": 0,
+                      "harvest_idle_polls": 0,
                       "shards": [dict(device=str(d), seed_s=0.0, waves=0,
                                       ext_tasks_device=0, launches=0,
                                       launches16=0) for d in devs]}
@@ -402,7 +407,14 @@ class BatchAligner:
         bwt_sa. post_dispatch (indexes without a dense SA) is called
         once every probe walk is on the card, before its results are
         read (JAX batch.py:181-196): the pipeline enqueues the next
-        batch's seed program there."""
+        batch's seed program there. Each read of the device here, those
+        of sa_batch included, is the tracer's span `sa.fetch`."""
+        from ..utils.trace import GLOBAL as tracer
+
+        def fetch(t):
+            with tracer.span("sa.fetch"):
+                return self.fetch(t)
+
         def fire():
             nonlocal post_dispatch
             cb, post_dispatch = post_dispatch, None
@@ -449,11 +461,11 @@ class BatchAligner:
             pad[:len(chunk)] = chunk
             walks.append((off, chunk) + sa_batch(
                 dfm_sa, self.put(pad, dfm_sa.device), 256,
-                int(self.fm.sa_intv), self.fetch))
+                int(self.fm.sa_intv), fetch))
         fire()   # every probe walk is on the card; results pending
         for off, chunk, sa_t, ovf_t in walks:
-            vals = self.fetch(sa_t[:len(chunk)]).copy()
-            ovf = self.fetch(ovf_t[:len(chunk)])
+            vals = fetch(sa_t[:len(chunk)]).copy()
+            ovf = fetch(ovf_t[:len(chunk)])
             for j in np.nonzero(ovf)[0]:
                 vals[j] = fmops.bwt_sa(self.fm, int(chunk[j]))
                 self._stat("sa_host_redo")
@@ -475,7 +487,13 @@ class BatchAligner:
         card, and on an index without a dense SA its fused LF walk is a
         kernel too (fm_torch.sa_batch), so this returns once the program
         is queued, and its end event (smem_torch._mark) is in each
-        shard's handle."""
+        shard's handle. The whole call is the tracer's span
+        `seed.dispatch`, from whichever thread calls it."""
+        from ..utils.trace import GLOBAL as tracer
+        with tracer.span("seed.dispatch"):
+            return self._seeds_dispatch(seqs)
+
+    def _seeds_dispatch(self, seqs: list[np.ndarray]) -> dict:
         n = len(seqs)
         per = -(-max(n, 1) // len(self.shards))
         bounds = [(i, min(i + per, n)) for i in range(0, n, per)] or [(0, 0)]
@@ -505,17 +523,20 @@ class BatchAligner:
         for the event of the program that made them (sub["event"]: the
         seed program's end, then a redo's) on the shard's copy stream,
         and the watchdog watches that stream, so neither waits behind a
-        later batch's program queued on the seed stream."""
+        later batch's program queued on the seed stream. Each read is the
+        tracer's span `seed.fetch`."""
+        from ..utils.trace import GLOBAL as tracer
         cs = self.shards[k]["copy_stream"]
-        if cs is None:
-            return self.fetch
 
         def fetch(t):
-            ev = sub.get("event")
-            if ev is not None:
-                cs.wait_event(ev)
-            with on_stream(cs):
-                return self.fetch(t)
+            with tracer.span("seed.fetch"):
+                if cs is None:
+                    return self.fetch(t)
+                ev = sub.get("event")
+                if ev is not None:
+                    cs.wait_event(ev)
+                with on_stream(cs):
+                    return self.fetch(t)
         return fetch
 
     def seeds_collect(self, h: dict):
@@ -665,16 +686,19 @@ class BatchAligner:
         default stream, which waits for the reads' upload on the seed
         stream (seeds_collect), and the watchdog's events (wait) watch
         the stream the waves ran on; the next batch's seed program runs
-        beside them on its own stream."""
+        beside them on its own stream. The worker's whole run is the
+        tracer's span `extend`."""
+        from ..utils.trace import GLOBAL as tracer
         pinned = self._dev_shards
         box: dict = {}
         abort = threading.Event()
 
         def work():
             try:
-                box["v"] = self.extend_waves_packed(
-                    seqs, all_intvs, sa_flat, pinned=pinned, names=names,
-                    abort=abort)
+                with tracer.span("extend"):
+                    box["v"] = self.extend_waves_packed(
+                        seqs, all_intvs, sa_flat, pinned=pinned,
+                        names=names, abort=abort)
             except BaseException as e:  # noqa: BLE001 - re-raised at join
                 box["e"] = e
 
@@ -772,17 +796,23 @@ class BatchAligner:
             return True
 
         def harvest(start):
-            i = start
-            while not stop_ev.is_set():
-                got = 0
-                for j in range(S):
-                    got = wave_native.steal(ctxs[(i + j) % S]["wd"],
-                                            STEAL_READS)
-                    if got:
-                        break
-                i += 1
-                if got == 0:
-                    stop_ev.wait(0.001)
+            # steals that found nothing, each followed by a 1 ms wait:
+            # counted here and added once, so the loop takes no lock
+            i, idle = start, 0
+            try:
+                while not stop_ev.is_set():
+                    got = 0
+                    for j in range(S):
+                        got = wave_native.steal(ctxs[(i + j) % S]["wd"],
+                                                STEAL_READS)
+                        if got:
+                            break
+                    i += 1
+                    if got == 0:
+                        idle += 1
+                        stop_ev.wait(0.001)
+            finally:
+                self._stat("harvest_idle_polls", idle)
 
         hthreads = [threading.Thread(target=harvest, args=(j,),
                                      name=f"harvest{j}", daemon=True)

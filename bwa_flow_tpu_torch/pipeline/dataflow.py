@@ -194,14 +194,17 @@ class AlignPipeline:
 
     def _tail_async(self, batch, all_regs):
         """Run the post-extension tail in a background thread (its work
-        uses the pool); returns join() -> the finished batch. A tail
-        failure is re-raised at join and fails the run."""
+        uses the pool), inside the span `tail`; returns join() -> the
+        finished batch. A tail failure is re-raised at join and fails the
+        run."""
+        from ..utils.trace import GLOBAL as tracer
         box: dict = {}
         tail = self._tail_pe if self.paired else self._tail_se
 
         def run_tail():
             try:
-                tail(batch, all_regs)
+                with tracer.span("tail"):
+                    tail(batch, all_regs)
             except BaseException as e:  # noqa: BLE001 - re-raised in join
                 box["err"] = e
 
@@ -220,9 +223,11 @@ class AlignPipeline:
         dedup/primary/SAM in the pool."""
         if _is_packed(all_regs):
             if region_native.se_tail_ok(self.opt, batch):
+                ctr: dict = {}
                 sams = region_native.se_tail_batch(
                     self.opt, self.fm, batch, None, self.rg_id,
-                    packed=all_regs[1:])
+                    packed=all_regs[1:], counters=ctr)
+                self._record_tail(ctr)
                 for r, s in zip(batch, sams):
                     r.sam = s
                 return
@@ -232,6 +237,18 @@ class AlignPipeline:
         sams = self._run_parts(_se_tail_worker, work)
         for r, s in zip(batch, sams):
             r.sam = s
+
+    def _record_tail(self, ctr: dict) -> None:
+        """A native tail's counters: its phases' seconds as the tracer's
+        `tail.<phase>`, its rescue's ksw_align2 calls and its pairs as
+        the stats `tail_matesw` and `tail_pairs`."""
+        from ..utils.trace import GLOBAL as tracer
+        for k in ("dedup", "rescue", "pair", "sam"):
+            if k in ctr:
+                tracer.add("tail." + k, ctr[k])
+        for k in ("matesw", "pairs"):
+            if k in ctr:
+                self.ba._stat("tail_" + k, ctr[k])
 
     def _tail_pe(self, batch, all_regs) -> None:
         """Packed regions (the native route): the native PE tail where
@@ -243,9 +260,11 @@ class AlignPipeline:
         golden route."""
         if _is_packed(all_regs):
             if region_native.pe_tail_ok(self.opt, batch):
+                ctr: dict = {}
                 sams, _ = region_native.pe_tail_batch(
                     self.opt, self.fm, batch, None, self.rg_id,
-                    packed=all_regs[1:], pes0=self.pes0)
+                    packed=all_regs[1:], pes0=self.pes0, counters=ctr)
+                self._record_tail(ctr)
                 for r, s in zip(batch, sams):
                     r.sam = s
                 return
@@ -367,9 +386,19 @@ class AlignPipeline:
                 prev["ext"].abandon()
             raise
         if pending is not None:
-            with tracer.span("emit_wait"):
-                emit(pending())
+            self._emit(pending, emit)
         return n_processed
+
+    @staticmethod
+    def _emit(pending, emit) -> None:
+        """Join a batch's tail (span `tail_wait`) and emit it (span
+        `emit`), both inside the span `emit_wait`."""
+        from ..utils.trace import GLOBAL as tracer
+        with tracer.span("emit_wait"):
+            with tracer.span("tail_wait"):
+                done = pending()
+            with tracer.span("emit"):
+                emit(done)
 
     def _seed_span(self, dt: float) -> None:
         """The adaptive downgrade's bookkeeping (JAX dataflow.py:423-429):
@@ -441,6 +470,5 @@ class AlignPipeline:
                     prev["reads"], region_native.unpack_regs(*regs[1:])
                     if _is_packed(regs) else regs)
         if pending is not None:
-            with tracer.span("emit_wait"):
-                emit(pending())
+            self._emit(pending, emit)
         return self._tail_async(prev["reads"], regs)

@@ -1,62 +1,55 @@
-"""Per-stage wall-clock span tracing (the reference's VLOG span pattern).
+"""Per-stage wall-clock and CPU-time span tracing (the reference's VLOG
+span pattern).
 
 The reference logs microsecond spans around every stage compute and every
 FPGA phase (getUs() + VLOG, src/util.h:33-38,
 src/Pipeline.cpp:145-150, src/fpga/FPGAPipeline.cpp:557-579) and sums them
-offline (bin/profile.sh). Here spans accumulate in-process per stage name
-and dump as a table or JSON; enable wire-level logging with
-BWA_TPU_TRACE=1 (one line per span, greppable the same way).
+offline (bin/profile.sh). Here spans accumulate in-process per stage name,
+from any thread: `totals[stage]` holds the wall seconds and
+`totals[stage + ".cpu"]` the CPU seconds of the thread that opened the
+span; `add` takes time measured elsewhere (the native tails' phases).
+A reader takes differences of `totals` over the interval it measures.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
-import os
-import sys
 import threading
 import time
 from collections import defaultdict
 
-_TRACE_ENV = "BWA_TPU_TRACE"
-
 
 class Tracer:
-    def __init__(self, name: str = "pipeline"):
-        self.name = name
+    def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
         self.counts: dict[str, int] = defaultdict(int)
         self._lock = threading.Lock()
-        self.log_spans = os.environ.get(_TRACE_ENV, "0") not in ("", "0")
 
     @contextlib.contextmanager
     def span(self, stage: str):
-        t0 = time.monotonic()
+        t0, c0 = time.monotonic(), time.thread_time()
         try:
             yield
         finally:
             dt = time.monotonic() - t0
+            dc = time.thread_time() - c0
             with self._lock:
                 self.totals[stage] += dt
+                self.totals[stage + ".cpu"] += dc
                 self.counts[stage] += 1
-            if self.log_spans:
-                print(f"[T::{self.name}] {stage}: {dt*1e6:.0f} us",
-                      file=sys.stderr)
 
-    def report(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        width = max((len(k) for k, _ in rows), default=5)
-        out = [f"{'stage':<{width}}  total_s   calls   avg_ms"]
-        for k, v in rows:
-            n = self.counts[k]
-            out.append(f"{k:<{width}}  {v:7.2f}  {n:6d}  {v/n*1e3:7.2f}")
-        return "\n".join(out)
+    def add(self, stage: str, seconds: float) -> None:
+        """Add `seconds` measured outside a span to `stage`."""
+        with self._lock:
+            self.totals[stage] += seconds
+            self.counts[stage] += 1
 
     def as_json(self) -> str:
-        return json.dumps({k: {"total_s": round(v, 4),
-                               "calls": self.counts[k]}
-                           for k, v in self.totals.items()})
+        with self._lock:
+            return json.dumps({k: {"total_s": round(v, 4),
+                                   "calls": self.counts.get(k, 0)}
+                               for k, v in self.totals.items()})
 
 
 GLOBAL = Tracer()
-span = GLOBAL.span

@@ -117,12 +117,13 @@ def test_se_shards_equal_one_device_and_jax(fx, se_sams, n_shards):
         assert sh["waves"] > 0 and sh["ext_tasks_device"] > 0
         assert sh["seed_s"] > 0
     assert sum(sh["waves"] for sh in stats["shards"]) == stats["waves"]
-    # the shard threads open no spans: the main thread's seed span runs
-    # once for the first batch's dispatch and once a collect (the next
-    # batch's dispatch runs inside the collect, from its hook), and sums
-    # no overlapping time
+    # the main thread's seed span runs once for the first batch's
+    # dispatch and once a collect (the next batch's dispatch runs inside
+    # the collect, from its hook); its top-level spans do not overlap, so
+    # they sum to no more than the run's wall (spans nested in them,
+    # other threads' spans and the `.cpu` totals are left out)
     assert tracer.counts["seed"] == 3
-    assert sum(tracer.totals.values()) - tracer.totals["extend_waves"] \
+    assert sum(tracer.totals[k] for k in ("seed", "sa", "emit_wait")) \
         <= wall + 0.5
 
 
