@@ -311,7 +311,7 @@ PyObject* py_global2(PyObject*, PyObject* args) {
   return Py_BuildValue("(LN)", (long long)score, clist);
 }
 
-PyObject* py_align2(PyObject*, PyObject* args) {
+PyObject* align2(PyObject* args, bool scalar_only) {
   int qlen, tlen, m, o_del, e_del, o_ins, e_ins, xtra;
   PyObject *qo, *to, *mo;
   if (!PyArg_ParseTuple(args, "iOiOOiiiiii", &qlen, &qo, &tlen, &to, &mo,
@@ -323,13 +323,43 @@ PyObject* py_align2(PyObject*, PyObject* args) {
   NoGilError err;
   run_nogil(&err, [&]() {
     r = bwaflow::ksw_align2(qlen, b.q(), tlen, b.t(), b.mat(), m, o_del,
-                            e_del, o_ins, e_ins, xtra);
+                            e_del, o_ins, e_ins, xtra, nullptr,
+                            scalar_only);
   });
   if (err) return err.raise(PyExc_RuntimeError);
   return Py_BuildValue("(LLLLLLL)", (long long)r.score, (long long)r.te,
                        (long long)r.qe, (long long)r.score2,
                        (long long)r.te2, (long long)r.tb,
                        (long long)r.qb);
+}
+
+PyObject* py_align2(PyObject*, PyObject* args) {
+  return align2(args, false);
+}
+
+PyObject* py_align2_scalar(PyObject*, PyObject* args) {
+  return align2(args, true);
+}
+
+// ksw_striped_ok(qlen, mat, m, o_del, e_del, o_ins, e_ins, xtra) -> bool:
+// whether ksw_align2 runs the striped pass on such a call
+PyObject* py_striped_ok(PyObject*, PyObject* args) {
+  int qlen, m, o_del, e_del, o_ins, e_ins, xtra;
+  PyObject* mo;
+  if (!PyArg_ParseTuple(args, "iOiiiiii", &qlen, &mo, &m, &o_del, &e_del,
+                        &o_ins, &e_ins, &xtra))
+    return nullptr;
+  Py_buffer mb;
+  if (!get_u8(mo, &mb, "mat")) return nullptr;
+  if (m <= 0 || mb.len < (Py_ssize_t)m * m) {
+    PyBuffer_Release(&mb);
+    PyErr_SetString(PyExc_ValueError, "mat shorter than m*m");
+    return nullptr;
+  }
+  bool ok = bwaflow::ksw_striped_ok(qlen, (const int8_t*)mb.buf, m, o_del,
+                                    e_del, o_ins, e_ins, xtra);
+  PyBuffer_Release(&mb);
+  return PyBool_FromLong(ok);
 }
 
 // sais(seq_u8 [n], K) -> bytes int64[n+1] — suffix array of
@@ -380,6 +410,10 @@ PyMethodDef methods[] = {
      "scalar banded extension (exact golden semantics)"},
     {"ksw_align2", py_align2, METH_VARARGS,
      "local alignment with sub-score (exact golden semantics)"},
+    {"ksw_align2_scalar", py_align2_scalar, METH_VARARGS,
+     "ksw_align2 held to its scalar pass (the striped pass's reference)"},
+    {"ksw_striped_ok", py_striped_ok, METH_VARARGS,
+     "whether ksw_align2 takes the striped pass on such a call"},
     {"ksw_global2", py_global2, METH_VARARGS,
      "banded global alignment + CIGAR (exact golden semantics)"},
     {"sa_resample", py_sa_resample, METH_VARARGS,

@@ -934,9 +934,10 @@ void pestat(const Opt& o, const PeOpt& po, int64_t l_pac,
 }
 
 // golden pe.py mem_matesw (pair.c:114-183)
+// Returns its ksw_align2 calls; `n_vec` gains those that ran striped.
 int matesw(const Opt& o, const PeOpt& po, const Bns& bns,
            const PeStatC pes[4], const Reg& a, int32_t l_ms,
-           const uint8_t* ms, std::vector<Reg>& ma) {
+           const uint8_t* ms, std::vector<Reg>& ma, int64_t* n_vec) {
   int64_t l_pac = bns.l_pac;
   bool skip[4];
   for (int r = 0; r < 4; ++r) skip[r] = pes[r].failed != 0;
@@ -978,9 +979,11 @@ int matesw(const Opt& o, const PeOpt& po, const Bns& bns,
       int xtra = bwaflow::KSW_XSUBO | bwaflow::KSW_XSTART |
                  ((int64_t)l_ms * o.a < 250 ? bwaflow::KSW_XBYTE : 0) |
                  (o.min_seed_len * o.a);
+      bool vec = false;
       bwaflow::KswResult aln = bwaflow::ksw_align2(
           l_ms, seq.data(), (int)(re - rb), ref.data(), o.mat, 5, o.o_del,
-          o.e_del, o.o_ins, o.e_ins, xtra);
+          o.e_del, o.o_ins, o.e_ins, xtra, &vec);
+      *n_vec += vec;
       if (aln.score >= o.min_seed_len && aln.qb >= 0) {
         Reg b{};
         b.rid = a.rid;
@@ -1115,12 +1118,13 @@ struct PeRead {
   std::string sam;
 };
 
-// Returns the ksw_align2 calls of its mate rescue. Laps `clk` after the
-// rescue and after the paired/unpaired decision; the caller laps the SAM.
+// Returns the ksw_align2 calls of its mate rescue; `n_vec` gains those
+// that ran striped. Laps `clk` after the rescue and after the
+// paired/unpaired decision; the caller laps the SAM.
 int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
            const PeStatC pes[4], uint64_t rid_, PeRead s[2],
            std::vector<Reg> a[2], const std::string& rg_id,
-           TailClock* clk) {
+           TailClock* clk, int64_t* n_vec) {
   int n = 0;
   int32_t extra_flag = 1;
   if (!(o.flag & F_NO_RESCUE)) {
@@ -1133,7 +1137,7 @@ int sam_pe(const Opt& o, const PeOpt& po, const Bns& bns,
       for (int64_t j = 0;
            j < std::min((int64_t)b[i].size(), (int64_t)po.max_matesw); ++j)
         n += matesw(o, po, bns, pes, b[i][j], s[1 - i].l_seq,
-                    s[1 - i].seq, a[1 - i]);
+                    s[1 - i].seq, a[1 - i], n_vec);
   }
   clk->lap(T_RESCUE);
   int64_t n_pri[2];
@@ -1523,9 +1527,10 @@ PyObject* py_dedup_batch(PyObject*, PyObject* args) {
 //               pe_ints i64[3] (pen_unpaired, max_matesw, max_ins),
 //               pes f64[20]|None (low, high, failed, avg, std x4))
 //  -> (list[bytes] SAM per read, pes_out f64[20] bytes,
-//      counters i64[6] bytes: ns in dedup (phase 1 and the insert-size
+//      counters i64[7] bytes: ns in dedup (phase 1 and the insert-size
 //      estimate), in mate rescue, in pairing, in SAM (the records and the
-//      per-pair loads); ksw_align2 calls of the rescue; pairs)
+//      per-pair loads); ksw_align2 calls of the rescue, those of them
+//      that ran striped; pairs)
 PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
   PyObject *seq_o, *seqoff_o, *qual_o, *name_o, *nameoff_o, *com_o,
       *comoff_o, *ids_o, *regs_o, *frac_o, *regoff_o, *pac_o, *annoff_o,
@@ -1614,10 +1619,10 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
 
   std::vector<std::string> sams((size_t)n);
   double pes_out[20];
-  int64_t counters[6];
+  int64_t counters[7];
   Py_BEGIN_ALLOW_THREADS
   TailClock clk;
-  int64_t n_matesw = 0;
+  int64_t n_matesw = 0, n_vec = 0;
   // phase 1: dedup + ALT flags for every read
   std::vector<std::vector<Reg>> all((size_t)n);
   for (int64_t r = 0; r < n; ++r) {
@@ -1663,14 +1668,16 @@ PyObject* py_pe_tail_batch(PyObject*, PyObject* args) {
     }
     uint64_t pair_id = (uint64_t)(ids[2 * i] >> 1);
     clk.lap(T_SAM);  // the previous pair's records and this pair's loads
-    n_matesw += sam_pe(opt, po, bns, pes, pair_id, rd, a2, rg_id, &clk);
+    n_matesw +=
+        sam_pe(opt, po, bns, pes, pair_id, rd, a2, rg_id, &clk, &n_vec);
     sams[2 * i] = std::move(rd[0].sam);
     sams[2 * i + 1] = std::move(rd[1].sam);
   }
   clk.lap(T_SAM);
   for (int p = 0; p < T_NPHASE; ++p) counters[p] = clk.ns[p];
   counters[4] = n_matesw;
-  counters[5] = n / 2;
+  counters[5] = n_vec;
+  counters[6] = n / 2;
   Py_END_ALLOW_THREADS
 
   PyObject* out = PyList_New((Py_ssize_t)n);

@@ -12,8 +12,13 @@
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <iterator>
 #include <utility>
 #include <vector>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 namespace bwaflow {
 
@@ -214,7 +219,10 @@ int64_t ksw_global2(int qlen, const uint8_t* query, int tlen,
 // ------------------------------------------------------------------
 // Local alignment (ksw_align2) — exact port of the golden NumPy
 // emulation of ksw_u8/ksw_i16 (bwa_flow_tpu/ops/ksw.py:282-360,
-// bwa/ksw.c:111-378 semantics), used by PE mate rescue.
+// bwa/ksw.c:111-378 semantics), used by PE mate rescue. Two passes give
+// the same cells: ksw_local_striped (Farrar's striped int16 pass, as
+// bwa/ksw.c's ksw_i16) wherever ksw_striped_ok holds, else
+// ksw_local_scalar, one int64 cell at a time.
 // ------------------------------------------------------------------
 
 constexpr int KSW_XBYTE = 0x10000;
@@ -227,23 +235,49 @@ struct KswResult {
           qb = -1;
 };
 
-inline KswResult ksw_local(int qlen, const uint8_t* query, int tlen,
-                           const uint8_t* target, const int8_t* mat, int m,
-                           int o_del, int e_del, int o_ins, int e_ins,
-                           int xtra, bool byte_mode) {
+// A run of consecutive rows whose maxima reach minsc: its best row.
+struct KswRun {
+  int64_t imax, i;
+};
+
+inline void ksw_add_run(std::vector<KswRun>& b, int64_t imax, int64_t i) {
+  if (b.empty() || b.back().i + 1 != i) b.push_back({imax, i});
+  else if (b.back().imax < imax) b.back() = {imax, i};
+}
+
+// score2/te2: the best run outside te +- rad.
+inline void ksw_second(KswResult* r, const std::vector<KswRun>& b,
+                       const int8_t* mat, int m) {
+  if (b.empty()) return;
+  int8_t max_sc = -128;
+  for (int i = 0; i < m * m; ++i) max_sc = std::max(max_sc, mat[i]);
+  int64_t rad = (r->score + max_sc - 1) / max_sc;
+  int64_t low = r->te - rad, high = r->te + rad;
+  for (const KswRun& run : b)
+    if ((run.i < low || run.i > high) && run.imax > r->score2) {
+      r->score2 = run.imax;
+      r->te2 = run.i;
+    }
+}
+
+inline int64_t ksw_shift(const int8_t* mat, int m, bool byte_mode) {
+  if (!byte_mode) return 0;
+  int8_t mn = 127;
+  for (int i = 0; i < m * m; ++i) mn = std::min(mn, mat[i]);
+  return -(int64_t)mn;
+}
+
+inline KswResult ksw_local_scalar(int qlen, const uint8_t* query, int tlen,
+                                  const uint8_t* target, const int8_t* mat,
+                                  int m, int o_del, int e_del, int o_ins,
+                                  int e_ins, int xtra, bool byte_mode) {
   int64_t minsc = (xtra & KSW_XSUBO) ? (xtra & 0xFFFF) : 0x10000;
   int64_t endsc = (xtra & KSW_XSTOP) ? (xtra & 0xFFFF) : 0x10000;
   int64_t oe_del = o_del + e_del, oe_ins = o_ins + e_ins;
-  int64_t shift = 0;
-  if (byte_mode) {
-    int8_t mn = 127;
-    for (int i = 0; i < m * m; ++i) mn = std::min(mn, mat[i]);
-    shift = -(int64_t)mn;
-  }
+  int64_t shift = ksw_shift(mat, m, byte_mode);
   std::vector<int64_t> H(qlen, 0), E(qlen, 0), Hmax(qlen, 0), Hrow(qlen);
   int64_t gmax = 0, te = -1;
-  struct Run { int64_t imax; int64_t i; };
-  std::vector<Run> b;
+  std::vector<KswRun> b;
   KswResult r;
   for (int i = 0; i < tlen; ++i) {
     const int8_t* q = mat + (int64_t)target[i] * m;
@@ -259,10 +293,7 @@ inline KswResult ksw_local(int qlen, const uint8_t* query, int tlen,
       imax = std::max(imax, h);
     }
     H.swap(Hrow);
-    if (imax >= minsc) {
-      if (b.empty() || b.back().i + 1 != i) b.push_back({imax, i});
-      else if (b.back().imax < imax) b.back() = {imax, i};
-    }
+    if (imax >= minsc) ksw_add_run(b, imax, i);
     if (imax > gmax) {
       gmax = imax;
       te = i;
@@ -279,38 +310,190 @@ inline KswResult ksw_local(int qlen, const uint8_t* query, int tlen,
       for (int j = 0; j < qlen; ++j)
         if (Hmax[j] == mx) { r.qe = j; break; }
     }
-    if (!b.empty()) {
-      int8_t max_sc = -128;
-      for (int i = 0; i < m * m; ++i) max_sc = std::max(max_sc, mat[i]);
-      int64_t rad = (r.score + max_sc - 1) / max_sc;
-      int64_t low = te - rad, high = te + rad;
-      for (const Run& run : b)
-        if ((run.i < low || run.i > high) && run.imax > r.score2) {
-          r.score2 = run.imax;
-          r.te2 = run.i;
-        }
-    }
+    ksw_second(&r, b, mat, m);
   }
   return r;
 }
 
+// The striped pass keeps H, E and F in int16 lanes. No cell exceeds
+// qlen * max(mat), so a query within this limit never saturates a lane;
+// its gap arithmetic (unsigned saturating subtraction, and the lazy-F
+// stop) holds for penalties of 0 or more.
+constexpr int64_t KSW_I16_LIMIT = 32767 - 255;
+
+inline bool ksw_striped_ok(int qlen, const int8_t* mat, int m, int o_del,
+                           int e_del, int o_ins, int e_ins, int xtra) {
+#if defined(__SSE2__)
+  int8_t max_sc = 0;
+  for (int i = 0; i < m * m; ++i) max_sc = std::max(max_sc, mat[i]);
+  for (int pen : {o_del, e_del, o_ins, e_ins})
+    if (pen < 0 || pen > 16383) return false;
+  return qlen > 0 && (int64_t)qlen * max_sc +
+                             ksw_shift(mat, m, (xtra & KSW_XBYTE) != 0) <
+                         KSW_I16_LIMIT;
+#else
+  (void)qlen, (void)mat, (void)m, (void)o_del, (void)e_del, (void)o_ins,
+      (void)e_ins, (void)xtra;
+  return false;
+#endif
+}
+
+#if defined(__SSE2__)
+// One 128-bit register's 8 int16 lanes, as stored in a std::vector
+// (which would drop __m128i's vector attributes).
+struct alignas(16) KswLanes {
+  int16_t l[8];
+};
+
+// The striped pass's rows, query profile and runs; one set a thread,
+// reused by each call.
+struct KswStriped {
+  std::vector<KswLanes> qp, mask, h0, h1, e, hmax;
+  std::vector<KswRun> runs;
+};
+
+// Farrar's striped pass (bwa/ksw.c's ksw_i16): query position
+// l * slen + s is lane l of segment s, so a row is slen vectors of 8
+// lanes. Within a row F runs down each lane; the lazy-F loop carries it
+// across lanes (bwa/ksw.c:177-188). E is not lifted where F lifts H: a
+// gap in the target after one in the query scores as the two in the
+// other order, which the next row's F computes anyway, so every H
+// equals ksw_local_scalar's. Positions past qlen score 0 and feed only
+// later padding; the row maximum masks them out.
+inline KswResult ksw_local_striped(int qlen, const uint8_t* query, int tlen,
+                                   const uint8_t* target, const int8_t* mat,
+                                   int m, int o_del, int e_del, int o_ins,
+                                   int e_ins, int xtra, bool byte_mode) {
+  constexpr int P = 8;
+  thread_local KswStriped w;
+  const int64_t minsc = (xtra & KSW_XSUBO) ? (xtra & 0xFFFF) : 0x10000;
+  const int64_t endsc = (xtra & KSW_XSTOP) ? (xtra & 0xFFFF) : 0x10000;
+  const int64_t shift = ksw_shift(mat, m, byte_mode);
+  const int slen = (qlen + P - 1) / P;
+  const __m128i zero = _mm_setzero_si128();
+  const __m128i oe_del = _mm_set1_epi16((int16_t)(o_del + e_del));
+  const __m128i v_e_del = _mm_set1_epi16((int16_t)e_del);
+  const __m128i oe_ins = _mm_set1_epi16((int16_t)(o_ins + e_ins));
+  const __m128i v_e_ins = _mm_set1_epi16((int16_t)e_ins);
+  w.qp.resize((size_t)m * slen);
+  w.mask.resize(slen);
+  for (int s = 0; s < slen; ++s)
+    for (int l = 0; l < P; ++l) {
+      const int j = l * slen + s;
+      w.mask[s].l[l] = j < qlen ? -1 : 0;
+      for (int c = 0; c < m; ++c)
+        w.qp[(size_t)c * slen + s].l[l] = j < qlen ? mat[c * m + query[j]]
+                                                   : 0;
+    }
+  w.h0.assign(slen, KswLanes{});
+  w.h1.assign(slen, KswLanes{});
+  w.e.assign(slen, KswLanes{});
+  w.hmax.resize(slen);
+  w.runs.clear();
+  __m128i* H0 = (__m128i*)w.h0.data();
+  __m128i* H1 = (__m128i*)w.h1.data();
+  __m128i* E = (__m128i*)w.e.data();
+  const __m128i* mask = (const __m128i*)w.mask.data();
+  const __m128i* qp = (const __m128i*)w.qp.data();
+  int64_t gmax = 0, te = -1;
+  for (int i = 0; i < tlen; ++i) {
+    const __m128i* S = qp + (size_t)target[i] * slen;
+    __m128i f = zero, vmax = zero;
+    __m128i h = _mm_slli_si128(H0[slen - 1], 2);  // H(i-1, j-1), segment 0
+    for (int s = 0; s < slen; ++s) {
+      h = _mm_adds_epi16(h, S[s]);
+      const __m128i e = E[s];
+      h = _mm_max_epi16(h, e);
+      h = _mm_max_epi16(h, f);
+      vmax = _mm_max_epi16(vmax, _mm_and_si128(h, mask[s]));
+      H1[s] = h;
+      E[s] = _mm_max_epi16(_mm_subs_epu16(e, v_e_del),
+                           _mm_subs_epu16(h, oe_del));
+      f = _mm_max_epi16(_mm_subs_epu16(f, v_e_ins),
+                        _mm_subs_epu16(h, oe_ins));
+      h = H0[s];
+    }
+    // F into each lane from the one below. A carried F stops mattering
+    // where, decayed, it no longer beats the gap opened from the H it
+    // met (that H's own F was carried already).
+    bool live = true;
+    for (int k = 0; k < P && live; ++k) {
+      f = _mm_slli_si128(f, 2);
+      for (int s = 0; s < slen; ++s) {
+        const __m128i h = H1[s];
+        H1[s] = _mm_max_epi16(h, f);
+        f = _mm_subs_epu16(f, v_e_ins);
+        if (!_mm_movemask_epi8(
+                _mm_cmpgt_epi16(f, _mm_subs_epu16(h, oe_ins)))) {
+          live = false;
+          break;
+        }
+      }
+    }
+    // F never beats the H it came from, so the first pass saw the row max
+    vmax = _mm_max_epi16(vmax, _mm_srli_si128(vmax, 8));
+    vmax = _mm_max_epi16(vmax, _mm_srli_si128(vmax, 4));
+    vmax = _mm_max_epi16(vmax, _mm_srli_si128(vmax, 2));
+    const int64_t imax = (int16_t)_mm_extract_epi16(vmax, 0);
+    if (imax >= minsc) ksw_add_run(w.runs, imax, i);
+    if (imax > gmax) {
+      gmax = imax;
+      te = i;
+      std::copy(H1, H1 + slen, (__m128i*)w.hmax.data());
+      if ((byte_mode && gmax + shift >= 255) || gmax >= endsc) break;
+    }
+    std::swap(H0, H1);
+  }
+  KswResult r;
+  r.score = (byte_mode && gmax + shift >= 255) ? 255 : gmax;
+  r.te = te;
+  if (r.score != 255 || !byte_mode) {
+    if (te >= 0) {  // the first position, in query order, of the row max
+      auto hm = [&](int j) { return (int64_t)w.hmax[j % slen].l[j / slen]; };
+      int64_t mx = 0;
+      for (int j = 0; j < qlen; ++j) mx = std::max(mx, hm(j));
+      for (int j = 0; j < qlen; ++j)
+        if (hm(j) == mx) { r.qe = j; break; }
+    }
+    ksw_second(&r, w.runs, mat, m);
+  }
+  return r;
+}
+#endif
+
+// `striped`, if given, learns whether the call ran striped;
+// `scalar_only` holds it to the scalar pass (the tests' reference).
 inline KswResult ksw_align2(int qlen, const uint8_t* query, int tlen,
                             const uint8_t* target, const int8_t* mat,
                             int m, int o_del, int e_del, int o_ins,
-                            int e_ins, int xtra) {
+                            int e_ins, int xtra, bool* striped = nullptr,
+                            bool scalar_only = false) {
   bool byte_mode = (xtra & KSW_XBYTE) != 0;
-  KswResult r = ksw_local(qlen, query, tlen, target, mat, m, o_del, e_del,
-                          o_ins, e_ins, xtra, byte_mode);
+  // the start's pass is no longer than this one, so it fits too
+  const bool vec = !scalar_only && ksw_striped_ok(qlen, mat, m, o_del,
+                                                  e_del, o_ins, e_ins, xtra);
+  if (striped) *striped = vec;
+  auto local = [&](int ql, const uint8_t* q, int tl, const uint8_t* t,
+                   int x) {
+#if defined(__SSE2__)
+    if (vec && ql > 0)
+      return ksw_local_striped(ql, q, tl, t, mat, m, o_del, e_del, o_ins,
+                               e_ins, x, byte_mode);
+#endif
+    return ksw_local_scalar(ql, q, tl, t, mat, m, o_del, e_del, o_ins,
+                            e_ins, x, byte_mode);
+  };
+  KswResult r = local(qlen, query, tlen, target, xtra);
   if ((xtra & KSW_XSTART) == 0 ||
       ((xtra & KSW_XSUBO) && r.score < (xtra & 0xFFFF)))
     return r;
-  std::vector<uint8_t> qr(query, query + r.qe + 1);
-  std::vector<uint8_t> tr(target, target + r.te + 1);
-  std::reverse(qr.begin(), qr.end());
-  std::reverse(tr.begin(), tr.end());
-  KswResult rr = ksw_local((int)qr.size(), qr.data(), (int)tr.size(),
-                           tr.data(), mat, m, o_del, e_del, o_ins, e_ins,
-                           (int)(KSW_XSTOP | r.score), byte_mode);
+  thread_local std::vector<uint8_t> qr, tr;
+  qr.assign(std::make_reverse_iterator(query + r.qe + 1),
+            std::make_reverse_iterator(query));
+  tr.assign(std::make_reverse_iterator(target + r.te + 1),
+            std::make_reverse_iterator(target));
+  KswResult rr = local((int)qr.size(), qr.data(), (int)tr.size(), tr.data(),
+                       (int)(KSW_XSTOP | r.score));
   if (r.score == rr.score) {
     r.tb = r.te - rr.te;
     r.qb = r.qe - rr.qe;

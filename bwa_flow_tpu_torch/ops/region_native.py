@@ -220,7 +220,8 @@ def pe_tail_batch(opt: MemOpt, fm: FMIndex, reads, reg_lists,
     Returns (sams list[str], pes list[PeStat] actually used).
     `counters`, if given, gains the seconds the C++ spent in "dedup"
     (with the insert-size estimate), "rescue", "pair" and "sam", the
-    rescue's ksw_align2 calls ("matesw") and the pairs ("pairs")."""
+    rescue's ksw_align2 calls ("matesw"), those of them that ran the
+    striped pass ("matesw_vec") and the pairs ("pairs")."""
     from .pe import PeStat
     rows, frac, off = _regs_arrays(reg_lists, packed)
     b = bns_arrays(fm)
@@ -232,7 +233,7 @@ def pe_tail_batch(opt: MemOpt, fm: FMIndex, reads, reg_lists,
         *_read_arrays(reads), rows, frac, off, b["pac"], fm.bns.l_pac,
         b["ann_off"], b["ann_alt"], b["name_cat"], b["name_off"],
         rg_id.encode(), opti, optf, mat, pe_ints, pes_in)
-    _count(counters, _TAIL_PHASES + ("matesw", "pairs"),
+    _count(counters, _TAIL_PHASES + ("matesw", "matesw_vec", "pairs"),
            np.frombuffer(ctr, np.int64))
     pv = np.frombuffer(pes_b, np.float64)
     pes_used = [PeStat(low=int(pv[d * 5]), high=int(pv[d * 5 + 1]),

@@ -332,10 +332,12 @@ class BatchAligner:
                       "enqueue_post_redo": 0, "enqueue_post_dispatch": 0,
                       "enqueue_late": 0,
                       "seed_downgrades": 0,
-                      # the native tails' mate rescue (ksw_align2 calls)
-                      # and pairs (AlignPipeline._record_tail), and the
-                      # harvesters' steals that found nothing to run
-                      "tail_matesw": 0, "tail_pairs": 0,
+                      # the native tails' mate rescue (ksw_align2 calls,
+                      # those that ran striped) and pairs
+                      # (AlignPipeline._record_tail), and the harvesters'
+                      # steals that found nothing to run
+                      "tail_matesw": 0, "tail_matesw_vec": 0,
+                      "tail_pairs": 0,
                       "harvest_idle_polls": 0,
                       "shards": [dict(device=str(d), seed_s=0.0, waves=0,
                                       ext_tasks_device=0, launches=0,

@@ -240,13 +240,14 @@ class AlignPipeline:
 
     def _record_tail(self, ctr: dict) -> None:
         """A native tail's counters: its phases' seconds as the tracer's
-        `tail.<phase>`, its rescue's ksw_align2 calls and its pairs as
-        the stats `tail_matesw` and `tail_pairs`."""
+        `tail.<phase>`; its rescue's ksw_align2 calls, those of them
+        that ran striped, and its pairs as the stats `tail_matesw`,
+        `tail_matesw_vec` and `tail_pairs`."""
         from ..utils.trace import GLOBAL as tracer
         for k in ("dedup", "rescue", "pair", "sam"):
             if k in ctr:
                 tracer.add("tail." + k, ctr[k])
-        for k in ("matesw", "pairs"):
+        for k in ("matesw", "matesw_vec", "pairs"):
             if k in ctr:
                 self.ba._stat("tail_" + k, ctr[k])
 

@@ -217,6 +217,157 @@ def test_native_ksw_align2_equals_jax(xtra):
         assert got == (r.score, r.te, r.qe, r.score2, r.te2, r.tb, r.qb)
 
 
+# the PE tail's rescue call on a 151 bp mate (csrc/host/_region.cpp matesw)
+RESCUE_XTRA = (jksw.KSW_XSUBO | jksw.KSW_XSTART | jksw.KSW_XBYTE | 19)
+PENS = (6, 1, 6, 1)
+
+
+def _mate_in(rng, q, tlen, sub=0.02, indel=0, at=None):
+    """A window of `tlen` random bases holding `q` with `sub` of its bases
+    substituted and an `indel`-bp deletion (> 0) or insertion (< 0) in
+    its middle."""
+    m = q.copy()
+    k = rng.random(len(m)) < sub
+    m[k] = (m[k] + rng.integers(1, 4, int(k.sum()))) % 4
+    c = len(m) // 2
+    if indel > 0:
+        m = np.concatenate([m[:c], m[c + indel:]])
+    elif indel < 0:
+        m = np.concatenate([m[:c], rng.integers(0, 4, -indel), m[c:]])
+    t = rng.integers(0, 4, tlen).astype(np.uint8)
+    at = int(rng.integers(0, tlen - len(m))) if at is None else at
+    t[at:at + len(m)] = m.astype(np.uint8)
+    return t
+
+
+def _align2_case(case, rng):
+    """(query, target, mat, xtra, striped) of one call of `case`."""
+    q = rng.integers(0, 4, 151).astype(np.uint8)
+    tlen = int(rng.integers(400, 701))
+    xtra = RESCUE_XTRA
+    if case == "rescue_mate":
+        t = _mate_in(rng, q, tlen, indel=int(rng.choice([-3, -2, -1, 1, 2,
+                                                          3])))
+    elif case == "rescue_no_mate":
+        t = rng.integers(0, 4, tlen).astype(np.uint8)
+    elif case == "rescue_n":
+        t = _mate_in(rng, q, tlen, indel=int(rng.integers(1, 4)))
+        q[rng.random(151) < 0.03] = 4
+        t[rng.random(tlen) < 0.03] = 4
+    elif case in ("qlen_odd", "qlen_tiny"):
+        ql = int(rng.choice([n for n in range(9, 200) if n % 8])
+                 if case == "qlen_odd" else rng.integers(1, 8))
+        q = rng.integers(0, 5, ql).astype(np.uint8)
+        tlen = int(rng.integers(ql + 1, 500))
+        t = _mate_in(rng, q, tlen, sub=0.05)
+        xtra = int(rng.choice([RESCUE_XTRA, jksw.KSW_XSTART, 0,
+                               jksw.KSW_XSUBO | jksw.KSW_XSTART | 4]))
+    elif case == "byte_255":   # 300 bp: the score passes 255 - shift
+        q = rng.integers(0, 4, 300).astype(np.uint8)
+        t = _mate_in(rng, q, 700, sub=0.0)
+        xtra = jksw.KSW_XBYTE | jksw.KSW_XSUBO | 19
+    elif case == "long_insertion":
+        # the mate with 40-42 extra bases in its middle: the gap's F runs
+        # across two or three lanes of 19, and the two flanks with it
+        # outscore either flank alone
+        g = int(rng.integers(40, 43))
+        c = (151 - g) // 2 + int(rng.integers(-3, 4))
+        t = rng.integers(0, 4, tlen).astype(np.uint8)
+        t[200:200 + 151 - g] = np.concatenate([q[:c], q[c + g:]])
+    elif case == "xstop":      # the mate's score reaches 60 mid-window
+        t = _mate_in(rng, q, tlen, sub=0.0, at=100)
+        xtra = jksw.KSW_XSTOP | 60
+    elif case in ("xsubo_near", "xsubo_far"):
+        # a second, weaker copy (its first 80 bases) beside the mate, or
+        # more than the score's radius away
+        t = _mate_in(rng, q, 700, sub=0.0, at=20)
+        at = 180 if case == "xsubo_near" else 500
+        t[at:at + 80] = q[:80]
+    elif case == "ties":       # periodic query and two equal copies
+        q = np.tile(rng.integers(0, 4, 4).astype(np.uint8), 38)[:151]
+        t = _mate_in(rng, q, tlen, sub=0.0, at=10)
+        t[-170:-19] = q
+    else:                      # past int16: 300 x 120 > 32767 - 255
+        assert case == "past_i16"
+        q = rng.integers(0, 4, 300).astype(np.uint8)
+        t = _mate_in(rng, q, 420, sub=0.03)
+        mat = MAT.copy()
+        np.fill_diagonal(mat[:4, :4], 120)
+        return q, t, mat, jksw.KSW_XSUBO | jksw.KSW_XSTART | 19, False
+    return q, t, MAT, xtra, True
+
+
+ALIGN2_CASES = ("rescue_mate", "rescue_no_mate", "rescue_n", "qlen_odd",
+                "qlen_tiny", "long_insertion", "byte_255", "xstop",
+                "xsubo_near", "xsubo_far", "ties", "past_i16")
+
+
+@pytest.mark.parametrize("case", ALIGN2_CASES)
+def test_striped_ksw_align2_equals_jax(case):
+    """_native.ksw_align2 on the mate rescue's shapes and at each of its
+    edges against the JAX package's NumPy ksw_align2; every case but
+    past_i16 takes the striped pass, past_i16 the scalar one."""
+    nat = _build.host_module("_native")
+    rng = np.random.default_rng(0x5172 + ALIGN2_CASES.index(case))
+    got_all = []
+    for _ in range(12):
+        q, t, mat, xtra, striped = _align2_case(case, rng)
+        args = (len(q), q, len(t), t, mat.ravel(), 5, *PENS, xtra)
+        assert nat.ksw_striped_ok(len(q), mat.ravel(), 5, *PENS,
+                                  xtra) == striped
+        got = nat.ksw_align2(*args)
+        r = jksw.ksw_align2(len(q), q, len(t), t, mat, *PENS, xtra)
+        assert got == (r.score, r.te, r.qe, r.score2, r.te2, r.tb, r.qb)
+        assert got == nat.ksw_align2_scalar(*args)
+        got_all.append(got)
+    score, te, score2, te2 = (np.array([g[i] for g in got_all])
+                              for i in (0, 1, 3, 4))
+    if case == "byte_255":
+        assert (score == 255).all()
+    elif case == "xstop":
+        assert (score >= 60).all() and (te < 100 + 151 - 1).all()
+    elif case == "xsubo_far":
+        assert (score2 >= 60).all() and (abs(te2 - te) > score).all()
+    elif case == "xsubo_near":
+        assert (score2 < 60).all()
+    elif case == "ties":
+        assert (te < 200).all()
+    elif case == "rescue_mate":
+        assert (score >= 100).all()
+    elif case == "long_insertion":   # both flanks and the gap: 151 - 2g - 6
+        assert (score >= 151 - 2 * 42 - 6).all()
+
+
+@pytest.mark.parametrize("pens", [PENS, (0, 0, 0, 0), (0, 1, 0, 1),
+                                  (5, 0, 1, 3), (2, 2, 9, 1)],
+                         ids=["bwa", "free", "extend_only", "mixed",
+                              "uneven"])
+@pytest.mark.parametrize("match", [1, 3])
+def test_striped_ksw_align2_equals_scalar(pens, match):
+    """The striped pass against ksw_local_scalar (_native.ksw_align2_scalar)
+    on random queries of 1-300 bases, windows with and without the
+    query, N, and every xtra flag; zero penalties let F and E run
+    without decay across every lane."""
+    nat = _build.host_module("_native")
+    mat = MAT.copy()
+    np.fill_diagonal(mat[:4, :4], match)
+    flags = (0, jksw.KSW_XSTART, RESCUE_XTRA, jksw.KSW_XSTOP | 40,
+             jksw.KSW_XBYTE | jksw.KSW_XSTART,
+             jksw.KSW_XSUBO | jksw.KSW_XSTART | 30)
+    rng = np.random.default_rng(0x57A1 + 7 * match + sum(pens))
+    for i in range(240):
+        ql = int(rng.integers(1, 301))
+        q = rng.integers(0, 5, ql).astype(np.uint8)
+        tl = int(rng.integers(ql + 1, 700))
+        t = (_mate_in(rng, q, tl, sub=0.04) if i % 3
+             else rng.integers(0, 5, tl).astype(np.uint8))
+        xtra = flags[i % len(flags)]
+        args = (ql, q, tl, t, mat.ravel(), 5, *pens, xtra)
+        assert nat.ksw_striped_ok(ql, mat.ravel(), 5, *pens, xtra)
+        assert nat.ksw_align2(*args) == nat.ksw_align2_scalar(*args), \
+            (ql, tl, xtra)
+
+
 def test_native_ksw_rejects_short_buffers_and_bad_symbols():
     nat = _build.host_module("_native")
     q = np.zeros(8, np.uint8)

@@ -36,7 +36,8 @@ ACGT = np.frombuffer(b"ACGT", np.uint8)
 PE_SPANS = ("tail", "tail_wait", "emit", "emit_wait", "tail.dedup",
             "tail.rescue", "tail.pair", "tail.sam", "parse", "seed",
             "seed.dispatch", "seed.fetch", "sa", "extend")
-PE_STATS = ("tail_matesw", "tail_pairs", "harvest_idle_polls")
+PE_STATS = ("tail_matesw", "tail_matesw_vec", "tail_pairs",
+            "harvest_idle_polls")
 
 
 def _spin(seconds):
@@ -217,7 +218,7 @@ def test_native_tail_counters_leave_the_sam_alone(world, paired):
                                              "rg", counters=ctr)
         wall = time.monotonic() - t0
         phases = ("dedup", "rescue", "pair", "sam")
-        assert set(ctr) == set(phases) | {"matesw", "pairs"}
+        assert set(ctr) == set(phases) | {"matesw", "matesw_vec", "pairs"}
         assert ctr["pairs"] == len(seqs) // 2
         assert ctr["matesw"] >= 6       # the random mates
     else:
@@ -233,6 +234,28 @@ def test_native_tail_counters_leave_the_sam_alone(world, paired):
     assert got == plain
     assert all(ctr[k] > 0 for k in phases)
     assert sum(ctr[k] for k in phases) <= wall
+
+
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_native_tail_counts_striped_rescue_calls(world, paired):
+    """Every rescue call of 151 bp mates runs the striped ksw_align2
+    (`matesw_vec` equals `matesw`); a single-end tail rescues nothing and
+    reports neither."""
+    opt = MemOpt()
+    if paired:
+        opt.flag |= MEM_F_PE
+    fm, seqs = world["fm"], world["seqs"]
+    regs = BatchAligner(opt, fm, device="cpu").align_regs(seqs)
+    ctr: dict = {}
+    if paired:
+        region_native.pe_tail_batch(opt, fm, _reads(seqs), regs, "rg",
+                                    counters=ctr)
+        assert ctr["matesw"] >= 6
+        assert ctr["matesw_vec"] == ctr["matesw"]
+    else:
+        region_native.se_tail_batch(opt, fm, _reads(seqs), regs, "rg",
+                                    counters=ctr)
+        assert not {"matesw", "matesw_vec"} & set(ctr)
 
 
 def test_pe_pipeline_fills_every_span_and_counter(world, tmp_path,
@@ -267,6 +290,7 @@ def test_pe_pipeline_fills_every_span_and_counter(world, tmp_path,
     assert all(k in st for k in PE_STATS)
     assert st["tail_pairs"] == len(seqs) // 2
     assert st["tail_matesw"] >= 6
+    assert st["tail_matesw_vec"] == st["tail_matesw"]
     assert tr["tail_wait"] + tr["emit"] <= tr["emit_wait"]
     assert sum(tr[f"tail.{k}"] for k in ("dedup", "rescue", "pair",
                                           "sam")) <= tr["tail"]
