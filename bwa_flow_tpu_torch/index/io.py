@@ -23,6 +23,19 @@ OCC_INTERVAL = 128  # bwa/bwt.h:36
 # (ops/fm_torch._densify_sa); only larger ones re-sample (tests lower it)
 RESAMPLE_MIN = 1 << 28
 
+# Test hook: put a sub-2^31 index on the wide path of a genome of 2^31
+# rows and more, so small-genome tests cover it: the int64 seed machine
+# (ops/smem_torch) and the int64 sampled SA, budgeted at 8 bytes a
+# sample, on the host and the card.
+FORCE_WIDE = False
+
+
+def wide(seq_len: int) -> bool:
+    """Whether an index of `seq_len` BWT rows takes the wide path (2^31
+    rows and more, or the test hook): the int64 seed machine and SA;
+    below, coordinates and SA values fit int32."""
+    return seq_len >= 2**31 or FORCE_WIDE
+
 _BYTE_LUT = np.empty((256, 4), dtype=np.uint8)
 for _b in range(256):
     _BYTE_LUT[_b] = ((_b >> 6) & 3, (_b >> 4) & 3, (_b >> 2) & 3, _b & 3)
@@ -273,7 +286,7 @@ def _resample_sa(fm: FMIndex, prefix: str | None, use_cache: bool) -> None:
     budget = int(os.environ.get("BWA_TPU_SA_BYTES", 7 << 29))
     if budget <= 0 or fm.seq_len <= RESAMPLE_MIN:
         return
-    itemsize = 4 if fm.seq_len < 2**31 else 8
+    itemsize = 8 if wide(fm.seq_len) else 4
     for intv in (4, 8, 16):
         if intv >= fm.sa_intv:
             return

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..index.fmindex import BLOCK, FMIndex
+from ..index.io import wide
 from . import fm_cuda
 
 _M32 = 0xFFFFFFFF
@@ -92,7 +93,8 @@ class DeviceFM:
         else:
             pac_words = np.zeros(1, dtype=np.uint32)
             l_pac = 0
-        sa_dt = np.int32 if 0 < fm.seq_len < 2**31 else np.int64
+        sa_dt = np.int32 if 0 < fm.seq_len and not wide(fm.seq_len) \
+            else np.int64
         dfm = cls(
             seq_len=int(fm.seq_len), primary=int(fm.primary),
             L2=torch.as_tensor(np.asarray(fm.L2, np.int64), device=device),

@@ -18,8 +18,9 @@ worklist walk and cohort emission; (2) re-seeding of long low-occ SMEMs
 from their middle with min_intv = s+1, one lane per task. Results are
 sorted by `info` on the device, and the seeds' SA values are resolved in
 the same call (dense-SA gather, or the phased LF walk). Budgets are
-fixed; a read that exhausts one sets an OVF_* bit and is redone by a
-big-budget device call, then by the host golden.
+fixed; a read that exhausts one sets an OVF_* bit and is redone by
+big-budget device calls (two levels, the second doubling the first's
+budgets), then by the host golden.
 
 The three machines and cohort emission (the XLA loops of smem_jax) are
 hand-written CUDA kernels on the card (ops/smem_cuda.py, csrc/seed_*.cu),
@@ -46,7 +47,9 @@ import numpy as np
 import torch
 
 from ..index.fmindex import FMIndex
+from ..index.io import wide
 from ..utils.opts import MemOpt
+from ..utils.trace import GLOBAL as tracer
 from . import smem as smem_golden
 from . import smem_cuda
 from .fm_torch import (DeviceFM, _on_card, occ4_batch, sa_batch,
@@ -634,7 +637,7 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
                         ITERS: int, q: torch.Tensor, qlen: torch.Tensor,
                         min_seed_len: int, split_len: int, split_width: int,
                         max_mem_intv: int, max_occ: int, pack_H: int = 0,
-                        big: bool = False, p2x: int = 1,
+                        big: int = 0, p2x: int = 1,
                         sa_intv_s: int = 0, fetch=to_host
                         ) -> tuple[torch.Tensor, ...]:
     """All seeding intervals for a batch of reads (mem_collect_intv,
@@ -651,15 +654,17 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
     B = q.shape[0]
     dt = dfm.L2.dtype         # int32 on a narrow view, else int64
     # budget profile: the default covers repeat-realistic batches; `big`
-    # is the device-redo variant for the overflowed residue; p2x deepens
-    # the pass-2 pools (Gbp genomes / adaptive escalation)
-    NB = max(MAXB, 384 if big else (160 if p2x > 1 else 128))
-    NB2 = 192 if big else (128 if p2x > 1 else 64)
-    NP3 = 64 if big else 24
-    M2 = min(128 if big else (96 if p2x > 1 else 64), MAXM)
-    PBUD1 = (128 if big else 48) * B
+    # (1, 2, ...) is the device redo's for the overflowed residue, each
+    # level twice the budgets of the one before; p2x deepens the pass-2
+    # pools (Gbp genomes / adaptive escalation)
+    g = 1 << (int(big) - 1) if big else 0
+    NB = max(MAXB, 384 * g if big else (160 if p2x > 1 else 128))
+    NB2 = 192 * g if big else (128 if p2x > 1 else 64)
+    NP3 = 64 * g if big else 24
+    M2 = min(128 * g if big else (96 if p2x > 1 else 64), MAXM)
+    PBUD1 = (128 * g if big else 48) * B
     if big:
-        TBUD, PBUD2 = 8 * B, 128 * B
+        TBUD, PBUD2 = 8 * g * B, 128 * g * B
     elif p2x == 1:
         TBUD, PBUD2 = 2 * B, 32 * B
     else:
@@ -756,7 +761,7 @@ def collect_intv_device(dfm: DeviceFM, L: int, MAXB: int, MAXM: int,
     # into a batch-global ragged pool of CAPO lanes
     if dfm.sa_dense is not None or sa_intv_s > 0:
         per = CAPO_PER if dfm.sa_dense is not None else CAPO_PER_BIG
-        CAPO = (per * 16 if big else per) * B
+        CAPO = (per * 16 * g if big else per) * B
         valid = slot_i < n_mem[:, None]
         s_col = torch.where(valid, mems[:, 2, :], 0)
         x0_col = mems[:, 0, :]
@@ -867,9 +872,6 @@ def pad_reads(reads: list[np.ndarray], L: int
 
 
 SEED_HEAD = 32  # leading mem slots of the dense view
-# Test hook: force the wide (int64) machine even for sub-2^31 genomes so
-# the human-scale path stays covered by small-genome unit tests.
-FORCE_WIDE = False
 
 
 def _opt_params(opt: MemOpt) -> tuple:
@@ -878,7 +880,9 @@ def _opt_params(opt: MemOpt) -> tuple:
 
 
 def _narrow(fm: FMIndex, L: int) -> bool:
-    return fm.seq_len < 2**31 and L < 32768 and not FORCE_WIDE
+    """The int32 machine: below 2^31 rows (index.io.wide, whose test
+    hook FORCE_WIDE forces the int64 one) and reads below 2^15."""
+    return not wide(fm.seq_len) and L < 32768
 
 
 def _mark(dev: torch.device):
@@ -942,8 +946,8 @@ def seed_dispatch(opt: MemOpt, fm: FMIndex, dfm: DeviceFM,
 
 def _fire_post_redo(handle: dict) -> None:
     """Call the handle's "_post_redo_dispatch" hook once: the batch's
-    last dependent device work is queued (JAX smem_jax.py:1264, :1289,
-    :1379)."""
+    seed program, and its first device-redo level if any, are queued
+    (JAX smem_jax.py:1264, :1289, :1379)."""
     cb = handle.pop("_post_redo_dispatch", None)
     if cb is not None:
         cb()
@@ -953,12 +957,14 @@ def seed_collect_batch(handle: dict, fetch=to_host
                        ) -> smem_golden.IntvBatch:
     """Finish a seed_dispatch as an array-native IntvBatch, reading the
     device with `fetch`. Overflowed reads are redone by the big-budget
-    device machine (queued on the current stream; the handle's "event"
-    then marks its end), then by the golden implementation, and spliced
-    in. The handle's "_post_redo_dispatch" hook fires as soon as no
-    more device work of this batch is to come: with no redo, after the
-    results are read; else once the redo programs are queued, before
-    their results are read."""
+    device machine, in two levels (queued on the current stream; the
+    handle's "event" then marks the end of the last queued), then by
+    the golden implementation, and spliced in. The handle's
+    "_post_redo_dispatch" hook fires once: with no redo, after the
+    results are read; else once the first redo level's programs are
+    queued, before their results are read. A second level, rare (the
+    reads the first leaves), then queues behind what the hook queued
+    (the next batch's seed program); its own event orders its reads."""
     opt, fm, reads = handle["opt"], handle["fm"], handle["reads"]
     L, MAXM = handle["L"], handle["MAXM"]
     n = len(reads)
@@ -996,29 +1002,32 @@ def seed_collect_batch(handle: dict, fetch=to_host
         ovf = meta[1] != 0
         occ_total = meta[2]
     if flats is None:
-        # wide genome, or the ragged mem pool overflowed (dense refetch)
-        used = int(n_mem.max()) if len(n_mem) else 0
-        width = H
-        while width < used:
-            width <<= 1
-        width = min(width, MAXM)
-        if packed is None and used <= H:
-            mems = fetch(handle["head"])
-        else:
-            mems = fetch(handle["mems"][:, :, :width])
-        W = mems.shape[2]
-        ish = INFO_SHIFT[mems.dtype]      # narrow machine packs start<<16
-        counts = np.minimum(n_mem[:n].astype(np.int64), W)
-        redo = np.fromiter(
-            (bool(ovf[b]) or len(reads[b]) > L for b in range(n)), bool, n)
-        counts = np.where(redo, 0, counts)
-        m = (np.arange(W)[None, :] < counts[:, None]).ravel()
-        k_c = mems[:n, 0, :].ravel()[m]
-        l_c = mems[:n, 1, :].ravel()[m]
-        s_c = mems[:n, 2, :].ravel()[m]
-        st_c = (mems[:n, 3, :] >> ish).astype(np.int32).ravel()[m]
-        en_c = (mems[:n, 3, :] & ((1 << ish) - 1)).astype(
-            np.int32).ravel()[m]
+        # wide genome, or the ragged mem pool overflowed (dense refetch):
+        # the tracer's span `seed.refetch`, the copy and its unpacking
+        with tracer.span("seed.refetch"):
+            used = int(n_mem.max()) if len(n_mem) else 0
+            width = H
+            while width < used:
+                width <<= 1
+            width = min(width, MAXM)
+            if packed is None and used <= H:
+                mems = fetch(handle["head"])
+            else:
+                mems = fetch(handle["mems"][:, :, :width])
+            W = mems.shape[2]
+            ish = INFO_SHIFT[mems.dtype]  # narrow machine packs start<<16
+            counts = np.minimum(n_mem[:n].astype(np.int64), W)
+            redo = np.fromiter(
+                (bool(ovf[b]) or len(reads[b]) > L for b in range(n)),
+                bool, n)
+            counts = np.where(redo, 0, counts)
+            m = (np.arange(W)[None, :] < counts[:, None]).ravel()
+            k_c = mems[:n, 0, :].ravel()[m]
+            l_c = mems[:n, 1, :].ravel()[m]
+            s_c = mems[:n, 2, :].ravel()[m]
+            st_c = (mems[:n, 3, :] >> ish).astype(np.int32).ravel()[m]
+            en_c = (mems[:n, 3, :] & ((1 << ish) - 1)).astype(
+                np.int32).ravel()[m]
     else:
         counts = n_mem[:n].astype(np.int64)
         redo = np.fromiter(
@@ -1075,6 +1084,9 @@ def seed_collect_batch(handle: dict, fetch=to_host
         if DEVICE_REDO and handle.get("dfm") is not None:
             todo = _device_redo(handle, todo, repl, counts, sa_vals, fetch)
         _fire_post_redo(handle)   # the redo skipped the device
+        # the reads each redo seeded (BatchAligner.stats)
+        handle["redo_device"] = int(redo.sum()) - len(todo)
+        handle["redo_golden"] = len(todo)
         for b in todo:
             iv = smem_golden.collect_intv(opt, fm, reads[b])
             rb = smem_golden.IntvBatch.from_lists([iv])
@@ -1123,33 +1135,46 @@ ADAPT_THRESH = 0.05
 def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
                  fetch=to_host) -> list:
     """Re-run budget-overflowed reads with the big-budget device machine
-    and record replacement segments in ``repl``. Every chunk's program
-    is queued first; then the handle's "event" marks their end and its
-    "_post_redo_dispatch" hook fires; then the results are read. Returns
+    and record replacement segments in ``repl``: level 1, then level 2
+    with twice its budgets, mem slots and steps for the reads level 1
+    left. At each level every chunk's program is queued first; then
+    the handle's "event" marks their end, after level 1 its
+    "_post_redo_dispatch" hook fires, and the results are read. Returns
     the residue that must still go to the host golden."""
     opt, fm, dfm, reads = (handle[k] for k in ("opt", "fm", "dfm", "reads"))
     L, MAXB = handle["L"], handle["MAXB"]
-    # OVF_MEMS overflows need more mem slots, not just bigger pools
-    MAXM = max(256, 2 * handle["MAXM"])
     fit = [b for b in idx if len(reads[b]) <= L]
     rest = [b for b in idx if len(reads[b]) > L]
-    if not fit:
-        return rest
     d = dfm.narrow() if _narrow(fm, L) else dfm
     params = _opt_params(opt)
     sa_s = int(fm.sa_intv) if (dfm.sa_dense is None
                                and fm.sa_intv <= 64) else 0
-    chunks = []
-    for c0 in range(0, len(fit), REDO_B):
-        sub = fit[c0:c0 + REDO_B]
-        q, qlen = pad_reads([reads[b] for b in sub], L)
-        chunks.append((sub, collect_intv_device(
-            d, L, MAXB, MAXM, handle["iters"],
-            torch.as_tensor(q, device=dfm.device),
-            torch.as_tensor(qlen, device=dfm.device), *params, pack_H=0,
-            big=True, sa_intv_s=sa_s, fetch=fetch)))
-    handle["event"] = _mark(dfm.device)
-    _fire_post_redo(handle)
+    for level in (1, 2):
+        if not fit:
+            break
+        g = 1 << (level - 1)
+        # OVF_MEMS overflows need more mem slots, not just bigger pools
+        MAXM = max(256, 2 * handle["MAXM"]) * g
+        chunks = []
+        for c0 in range(0, len(fit), REDO_B):
+            sub = fit[c0:c0 + REDO_B]
+            q, qlen = pad_reads([reads[b] for b in sub], L)
+            chunks.append((sub, collect_intv_device(
+                d, L, MAXB, MAXM, handle["iters"] * g,
+                torch.as_tensor(q, device=dfm.device),
+                torch.as_tensor(qlen, device=dfm.device), *params,
+                pack_H=0, big=level, sa_intv_s=sa_s, fetch=fetch)))
+        handle["event"] = _mark(dfm.device)
+        _fire_post_redo(handle)
+        fit = _redo_results(chunks, repl, counts, sa_vals, fetch)
+    return rest + fit
+
+
+def _redo_results(chunks: list, repl: dict, counts, sa_vals,
+                  fetch=to_host) -> list:
+    """Read one device-redo level's results into ``repl``, ``counts``
+    and ``sa_vals``; returns the reads that overflowed again."""
+    left = []
     for sub, out in chunks:
         mems, n_mem, ovf, occ_sa, occ_total = (fetch(o) for o in out)
         ish = INFO_SHIFT[mems.dtype]
@@ -1157,7 +1182,7 @@ def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
         baseo_r = np.cumsum(ocnt_r, dtype=np.int64) - ocnt_r
         for j, b in enumerate(sub):
             if ovf[j]:
-                rest.append(b)
+                left.append(b)
                 continue
             c = int(n_mem[j])
             repl[b] = dict(
@@ -1171,7 +1196,7 @@ def _device_redo(handle: dict, idx: list, repl: dict, counts, sa_vals,
             if (t >= 0 and occ_sa.ndim == 1 and len(occ_sa) > 1
                     and baseo_r[j] + t <= len(occ_sa)):
                 sa_vals[b] = occ_sa[baseo_r[j]:baseo_r[j] + t]
-    return rest
+    return left
 
 
 def seed_collect(handle: dict, fetch=to_host

@@ -69,6 +69,7 @@ import torch
 
 from .. import resolve_device
 from ..index.fmindex import FMIndex
+from ..index.io import wide
 from ..io.sam import Read, mem_reg2sam
 from ..models import golden
 from ..ops import chain as chainops
@@ -332,6 +333,14 @@ class BatchAligner:
                       "enqueue_post_redo": 0, "enqueue_post_dispatch": 0,
                       "enqueue_late": 0,
                       "seed_downgrades": 0,
+                      # batches seeded on the int64 (wide) machine; the
+                      # bytes their collects copied from the device;
+                      # the SA values the seed program's fused walk
+                      # resolved; the reads each redo seeded (the
+                      # big-budget device machine, the host golden)
+                      "seed_wide": 0, "seed_fetch_bytes": 0,
+                      "sa_values": 0, "seed_redo_device": 0,
+                      "seed_redo_golden": 0,
                       # the native tails' mate rescue (ksw_align2 calls,
                       # those that ran striped) and pairs
                       # (AlignPipeline._record_tail), and the harvesters'
@@ -448,7 +457,7 @@ class BatchAligner:
                 [np.arange(lo, hi) for lo, hi in need_idx])
             rows = rows[need]
         # sub-2^31 genomes walk the LF chain in int32 on a narrow view
-        narrow = self.fm.seq_len < 2**31 and not smem_torch.FORCE_WIDE
+        narrow = not wide(self.fm.seq_len)
         dfm_sas = [s["dfm"].narrow() if narrow else s["dfm"]
                    for s in self.shards]
         pdt = np.int32 if narrow else np.int64
@@ -526,19 +535,23 @@ class BatchAligner:
         seed program's end, then a redo's) on the shard's copy stream,
         and the watchdog watches that stream, so neither waits behind a
         later batch's program queued on the seed stream. Each read is the
-        tracer's span `seed.fetch`."""
+        tracer's span `seed.fetch`, and its bytes count in the stat
+        `seed_fetch_bytes`."""
         from ..utils.trace import GLOBAL as tracer
         cs = self.shards[k]["copy_stream"]
 
         def fetch(t):
             with tracer.span("seed.fetch"):
                 if cs is None:
-                    return self.fetch(t)
-                ev = sub.get("event")
-                if ev is not None:
-                    cs.wait_event(ev)
-                with on_stream(cs):
-                    return self.fetch(t)
+                    a = self.fetch(t)
+                else:
+                    ev = sub.get("event")
+                    if ev is not None:
+                        cs.wait_event(ev)
+                    with on_stream(cs):
+                        a = self.fetch(t)
+            self._stat("seed_fetch_bytes", a.nbytes)
+            return a
         return fetch
 
     def seeds_collect(self, h: dict):
@@ -547,9 +560,9 @@ class BatchAligner:
         reads as the device-resident reads of the following extension
         waves. A shard's redo programs run on its seed stream. The
         handle's "_post_redo_dispatch" hook (AlignPipeline.run), if any,
-        fires once every shard has queued its last dependent device
-        work: its redo programs, or none (smem_torch.seed_collect_batch,
-        JAX batch.py:375-378). The hook's time (the next batch's
+        fires once every shard has queued its seed program and its
+        first device-redo level, if any (smem_torch.seed_collect_batch:
+        a second level, rare, queues after it; JAX batch.py:375-378). The hook's time (the next batch's
         seeds_dispatch, which counts its own) is left out of this
         collect's seed_s."""
         self._stat("reads", h["n_reads"])
@@ -599,9 +612,16 @@ class BatchAligner:
                 wave_stream.wait_event(sub["event"])
                 q_dev.record_stream(wave_stream)
         self._stat("seed_batches")
+        if any("meta" in sub for _, sub in parts):
+            self._stat("seed_wide")
+        for name in ("redo_device", "redo_golden"):
+            self._stat("seed_" + name, sum(sub.get(name, 0)
+                                           for _, sub in parts))
         h["sa_vals"] = [v for _, sub in parts
                         for v in (sub.get("sa_vals")
                                   or [None] * len(sub["reads"]))]
+        self._stat("sa_values", sum(len(v) for v in h["sa_vals"]
+                                    if v is not None))
         return IntvBatch.concat(batches)
 
     @staticmethod

@@ -97,8 +97,9 @@ Phases:
      must equal phase 3's full.sam byte for byte.
   9. the paths no earlier phase runs, and the checks that make a run
      fail, on the pure-Python route (its injections target its wave
-     buffer; phase 10 injects on the native route): the first 2048 of phase 3's reads on the wide int64 seed
-     machine (FORCE_WIDE) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
+     buffer; phase 10 injects on the native route): the first 2048 of
+     phase 3's reads on the wide path (index.io.FORCE_WIDE: the int64
+     seed machine and SA) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
      the fused LF walk, which must have launched the sa_walk kernel once
      a sa_batch call and run no plain walk on the card; each call then
      held to the plain version on the card), records equal to the default
@@ -1671,8 +1672,9 @@ def _recording(owner, attr: str, record):
 
 def phase_bypassed_paths(work: Path, device: str) -> dict:
     """The device paths no earlier phase runs: the first P9_READS of
-    phase 3's reads on the wide int64 seed machine (FORCE_WIDE) and with
-    no dense SA (BWA_TPU_DENSE_SA_MAX=0: the seed program's fused LF
+    phase 3's reads on the wide path (index.io.FORCE_WIDE: the int64 seed
+    machine and SA) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0: the
+    seed program's fused LF
     walk, and resolve_sa_flat's walks of the redone reads), against the
     default path in the same phase; then -I 400,40 on phase 4's pairs
     (int16 kernel): 64 pairs equal to --no-device, and the mapped and
@@ -1680,6 +1682,7 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     import torch
 
     from bwa_flow_tpu_torch import cli
+    from bwa_flow_tpu_torch.index import io as idx_io
     from bwa_flow_tpu_torch.ops import fm_cuda, smem_torch
 
     ref = str(work / "ref.fa")
@@ -1691,13 +1694,13 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     with _recording(*dtype) as dts:
         runs["default"] = _cli_run("default", base + [
             "-o", str(work / "p9_default.sam"), ref, fq])
-    smem_torch.FORCE_WIDE = True
+    idx_io.FORCE_WIDE = True
     try:
         with _recording(*dtype) as dts_wide:
             runs["wide"] = _cli_run("wide int64 machine", base + [
                 "-o", str(work / "p9_wide.sam"), ref, fq])
     finally:
-        smem_torch.FORCE_WIDE = False
+        idx_io.FORCE_WIDE = False
     print(f"[p9] seed machines' coordinates: default {set(dts)}, wide "
           f"{set(dts_wide)}")
     if set(dts) != {torch.int32} or set(dts_wide) != {torch.int64}:

@@ -15,6 +15,7 @@ from bwa_flow_tpu.index.build import build_index
 from bwa_flow_tpu.ops import fm_jax, smem_jax
 from bwa_flow_tpu.ops import smem as jax_golden
 from bwa_flow_tpu.utils.opts import MemOpt
+from bwa_flow_tpu_torch.index import io as idx_io
 from bwa_flow_tpu_torch.ops import fm_torch, smem_torch
 from bwa_flow_tpu_torch.ops import smem as port_golden
 from bwa_flow_tpu_torch.ops.probe_layout import sa_probe_layout
@@ -181,7 +182,7 @@ def test_collect_intv_wide_path_matches_golden(idx, monkeypatch):
     opt = MemOpt()
     reads = _sample_reads(np.random.default_rng(37), idx["contigs"], 24)
     monkeypatch.setattr(smem_jax, "FORCE_WIDE", True)
-    monkeypatch.setattr(smem_torch, "FORCE_WIDE", True)
+    monkeypatch.setattr(idx_io, "FORCE_WIDE", True)
     ht = smem_torch.seed_dispatch(opt, idx["fm"], idx["dt"], reads, L=128)
     assert "packed" not in ht
     assert ht["mems"].dtype == torch.int64
