@@ -11,10 +11,11 @@ kernel's registers, shared memory and spills) is kept beside the library
 and returned by ``build_log``.
 
 Each ``csrc/host/<name>.cpp`` (``_chain``, ``_region``, ``_wave``,
-``_native``, ``_markdup``, ``_bam``) is a CPython extension. At first
-use it is compiled with the system ``c++`` into ``build/host/``, named
-by a hash of the source, the ``csrc/host/*.h`` headers it includes, its
-flags (``_native`` and ``_bam`` take ``-pthread``; ``_bam`` links zlib)
+``_native``, ``_markdup``, ``_bam``, ``_fastq``) is a CPython extension.
+At first use it is compiled with the system ``c++`` into ``build/host/``,
+named by a hash of the source, the ``csrc/host/*.h`` headers it includes,
+its flags (``_native``, ``_bam`` and ``_fastq`` take ``-pthread``;
+``_bam`` and ``_fastq`` link zlib)
 and the interpreter's include directory, under a file lock (one build
 for every process of the checkout), and loaded as
 ``bwa_flow_tpu_torch.<name>``.
@@ -52,9 +53,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # setup.py's flags for the JAX package's copies of these extensions, plus
 # what a shared CPython extension needs
 HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-HOST_LIBS = ("_chain", "_region", "_wave", "_native", "_markdup", "_bam")
-# setup.py's per-extension flags, after the source (libraries link there)
-HOST_LIB_FLAGS = {"_native": ("-pthread",), "_bam": ("-pthread", "-lz")}
+HOST_LIBS = ("_chain", "_region", "_wave", "_native", "_markdup", "_bam",
+             "_fastq")
+# setup.py's per-extension flags, after the source (libraries link there);
+# `_fastq`, the port's own, takes `_bam`'s
+HOST_LIB_FLAGS = {"_native": ("-pthread",), "_bam": ("-pthread", "-lz"),
+                  "_fastq": ("-pthread", "-lz")}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LOCK = threading.Lock()

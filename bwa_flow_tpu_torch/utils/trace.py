@@ -7,7 +7,10 @@ src/Pipeline.cpp:145-150, src/fpga/FPGAPipeline.cpp:557-579) and sums them
 offline (bin/profile.sh). Here spans accumulate in-process per stage name,
 from any thread: `totals[stage]` holds the wall seconds and
 `totals[stage + ".cpu"]` the CPU seconds of the thread that opened the
-span; `add` takes time measured elsewhere (the native tails' phases).
+span; `add` takes time measured elsewhere (the native tails' phases,
+the FASTQ reader thread's `parse.reader`). One entry is a count, not
+seconds: `parse.ready` adds 1.0 for each batch the reader thread had
+parsed before the consumer asked for it (`io/fastq.py`).
 A reader takes differences of `totals` over the interval it measures.
 """
 

@@ -3154,18 +3154,17 @@ def phase_seed_kernels(work: Path, genome: np.ndarray, device: str) -> dict:
     import itertools
 
     from bwa_flow_tpu_torch.index.io import load_index
-    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.io.fastq import read_batches
     from bwa_flow_tpu_torch.ops import smem_torch
     from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
     from bwa_flow_tpu_torch.utils.opts import MemOpt
 
     fm = load_index(str(work / "ref.fa"))
     ba = BatchAligner(MemOpt(), fm, smem_L=SEED_L, device=device)
-    se = [r.seq for r in itertools.islice(read_seqs(work / "reads.fq"),
-                                          SEED_B)]
-    pe = [r.seq for pair in itertools.islice(
-        zip(read_seqs(work / "r1.fq"), read_seqs(work / "r2.fq")),
-        SEED_B // 2) for r in pair]
+    se = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(work / "reads.fq")), SEED_B)]
+    pe = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(work / "r1.fq", work / "r2.fq")), SEED_B // 2 * 2)]
 
     def batch(reads, L=SEED_L):
         q, qlen = smem_torch.pad_reads(reads, L)
@@ -3624,7 +3623,7 @@ def phase_large_genome(work: Path, device: str) -> dict:
     from bwa_flow_tpu_torch import cli
     from bwa_flow_tpu_torch.index import build
     from bwa_flow_tpu_torch.index.io import load_index
-    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.io.fastq import read_batches
     from bwa_flow_tpu_torch.ops import fm_torch
     from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
     from bwa_flow_tpu_torch.utils.opts import MemOpt
@@ -3700,8 +3699,8 @@ def phase_large_genome(work: Path, device: str) -> dict:
 
     # the probe path on a batch's own intervals, every probe walked
     ba = BatchAligner(MemOpt(), fm, smem_L=SEED_L, device=device)
-    seqs = [r.seq for r in itertools.islice(read_seqs(big / "reads.fq"),
-                                            BATCH)]
+    seqs = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(big / "reads.fq")), BATCH)]
     h = ba.seeds_dispatch(seqs)
     intvs = ba.seeds_collect(h)
     redo0 = ba.stats["sa_host_redo"]

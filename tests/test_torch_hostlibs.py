@@ -43,6 +43,7 @@ from bwa_flow_tpu_torch.dedup import markdup as md
 from bwa_flow_tpu_torch.index import io as idx_io
 from bwa_flow_tpu_torch.index.build import build_index, suffix_array_sais
 from bwa_flow_tpu_torch.io import bam
+from bwa_flow_tpu_torch.io.fastq import read_batches
 from bwa_flow_tpu_torch.io.sam import Read
 from bwa_flow_tpu_torch.ops import fm_torch, ksw
 from bwa_flow_tpu_torch.parallel import distributed as dist
@@ -803,6 +804,8 @@ def _entry_points(tmp_path):
         0, 4, 3000)].tobytes())]
     q = np.zeros(20, np.uint8)
     fm_ = type("FM", (), {"bns": type("B", (), {"anns": ANNS})})
+    fq = tmp_path / "r.fq"
+    fq.write_text("@r\nACGT\n+\nIIII\n")
     return {
         "build_index": lambda: build_index(contigs),
         "ksw_extend2": lambda: ksw.ksw_extend2(20, q, 20, q, MAT, 6, 1, 6,
@@ -812,12 +815,13 @@ def _entry_points(tmp_path):
         "markdup": lambda: md.make_markdup_stage(fm_),
         "bam_writer": lambda: bam.BamWriter(str(tmp_path / "x.bam"), ANNS),
         "bucket_sort": lambda: sort.BucketSort(ANNS, str(tmp_path / "t")),
+        "read_batches": lambda: next(read_batches(fq)),
     }
 
 
 @pytest.mark.parametrize("entry", ["build_index", "ksw_extend2",
                                    "ksw_global2", "markdup", "bam_writer",
-                                   "bucket_sort"])
+                                   "bucket_sort", "read_batches"])
 def test_failed_build_raises_and_no_python_version_runs(tmp_path,
                                                         monkeypatch, entry):
     """A compiler that fails: the entry point raises with its output, and
@@ -844,7 +848,7 @@ def test_failed_build_raises_and_no_python_version_runs(tmp_path,
 
 
 def test_six_host_libraries_load_alone():
-    """All six host libraries import from build/host/ as modules of
+    """All seven host libraries import from build/host/ as modules of
     bwa_flow_tpu_torch, with no JAX or bwa_flow_tpu module loaded; each
     build hashes only the headers its source includes."""
     code = (
@@ -863,10 +867,11 @@ def test_six_host_libraries_load_alone():
                        text=True, cwd=str(ROOT), env=env, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", \
         r.stdout + r.stderr[-3000:]
-    assert len(_build.HOST_LIBS) == 6
+    assert len(_build.HOST_LIBS) == 7
     heads = {n: [p.name for p in _build.host_headers(n)]
              for n in _build.HOST_LIBS}
     assert heads["_chain"] == ["introsort.h"]
+    assert heads["_fastq"] == []
     assert heads["_markdup"] == heads["_bam"] == ["nogil.h"]
     assert sorted(heads["_native"]) == ["ksw_impl.h", "nogil.h",
                                         "sais_impl.h"]

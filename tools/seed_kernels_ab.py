@@ -54,7 +54,7 @@ def one(root: Path) -> dict:
     sys.path.insert(0, str(root))
     cs = importlib.import_module("chip_smoke")
     from bwa_flow_tpu_torch import _build, cli
-    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.io.fastq import read_batches
     from bwa_flow_tpu_torch.ops import smem_torch
     from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
     from bwa_flow_tpu_torch.utils.opts import MemOpt
@@ -74,11 +74,10 @@ def one(root: Path) -> dict:
     from bwa_flow_tpu_torch.index.io import load_index
     ba = BatchAligner(MemOpt(), load_index(str(work / "ref.fa")),
                       smem_L=cs.SEED_L, device="cuda")
-    se = [r.seq for r in itertools.islice(read_seqs(work / "reads.fq"),
-                                          cs.SEED_B)]
-    pe = [r.seq for pair in itertools.islice(
-        zip(read_seqs(work / "r1.fq"), read_seqs(work / "r2.fq")),
-        cs.SEED_B // 2) for r in pair]
+    se = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(work / "reads.fq")), cs.SEED_B)]
+    pe = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(work / "r1.fq", work / "r2.fq")), cs.SEED_B // 2 * 2)]
     out = {}
     for tag, reads in (("se", se), ("pe", pe)):
         q, qlen = smem_torch.pad_reads(reads, cs.SEED_L)
@@ -103,7 +102,7 @@ def one_sa_batch(root: Path) -> dict:
     cs = importlib.import_module("chip_smoke")
     from bwa_flow_tpu_torch import _build, cli
     from bwa_flow_tpu_torch.index import io as idx_io
-    from bwa_flow_tpu_torch.io.fastq import read_seqs
+    from bwa_flow_tpu_torch.io.fastq import read_batches
     from bwa_flow_tpu_torch.ops import fm_cuda, fm_torch, smem_torch
     from bwa_flow_tpu_torch.pipeline import batch
     from bwa_flow_tpu_torch.utils.opts import MemOpt
@@ -123,8 +122,8 @@ def one_sa_batch(root: Path) -> dict:
     fm = idx_io.load_index(str(work / "ref.fa"))
     assert fm.sa_intv == 4
     ba = batch.BatchAligner(MemOpt(), fm, smem_L=cs.SEED_L, device="cuda")
-    seqs = [r.seq for r in itertools.islice(read_seqs(work / "reads.fq"),
-                                            cs.SEED_B)]
+    seqs = [r.seq for r in itertools.islice(itertools.chain.from_iterable(
+        read_batches(work / "reads.fq")), cs.SEED_B)]
     calls = []
     real = fm_torch.sa_batch
 
