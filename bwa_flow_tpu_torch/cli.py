@@ -9,13 +9,11 @@ on several from one process (--local-devices N).
 `mem` takes the native route (pipeline/batch.py: the port's host
 libraries csrc/host, built with c++ at first use, for chaining,
 extension, the tails, markdup and the BAM encoder), as a built JAX
-install does; in-process callers reach the pure-Python route with
-_mem(..., native=False), which also takes the regex markdup stage and
-the Python BAM encoder, as a JAX install without its extensions does.
-`index` builds the suffix array with the native SA-IS. --ext-mode host (the default, also from
-BWA_TPU_EXT) runs every extension task on harvester threads (the native
-_wave driver's exact scalar kernel) and launches no ksw kernel;
---ext-mode waves runs device extension waves beside them.
+install does. `index` builds the suffix array with the native SA-IS.
+--ext-mode host (the default, also from BWA_TPU_EXT) runs every
+extension task on harvester threads (the native _wave driver's exact
+scalar kernel) and launches no ksw kernel; --ext-mode waves runs device
+extension waves beside them.
 
 --validate-every N and --device-timeout S are the JAX package's result
 validation and hang watchdog, with one difference: where the JAX package
@@ -332,14 +330,11 @@ def local_devices(device, n: int | None) -> list[torch.device] | None:
             for i in range(min(n, count))]
 
 
-def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
-         native: bool = True) -> int:
+def _mem(args, argv, opt, pid: int, nprocs: int, devices=None) -> int:
     """`mem` as rank `pid` of `nprocs` (the process group, if any, is
     formed and destroyed by the caller). `devices`, a list of torch
     devices (it may repeat one), shards the device path over them in
-    place of --device/--local-devices. native=False takes the
-    pure-Python route (AlignPipeline), the regex markdup stage and the
-    Python BAM encoder."""
+    place of --device/--local-devices."""
     device = args.device
     if nprocs > 1:
         # per-rank output (the reference's <host>-<pid> dirs,
@@ -380,8 +375,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
     markdup = None
     if not args.disable_markdup:
         from .dedup.markdup import make_markdup_stage
-        markdup = make_markdup_stage(fm, ignore_unmated=True,
-                                     native=native)
+        markdup = make_markdup_stage(fm, ignore_unmated=True)
 
     bucket = None
     out = None
@@ -393,7 +387,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
             # <host>-<pid> output dirs, mpi_main.cpp:294-318)
             temp_dir = os.path.join(temp_dir, f"rank{pid:03d}")
         bucket = BucketSort(fm.bns.anns, temp_dir, args.num_buckets,
-                            drop_dups=args.remove_dups, native=native)
+                            drop_dups=args.remove_dups)
     else:
         out = sys.stdout if args.output == "-" else open(args.output, "w")
         out.write(header)
@@ -483,7 +477,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
                                  devices=devices,
                                  validate_every=args.validate_every,
                                  device_timeout=args.device_timeout,
-                                 native=native, ext_mode=args.ext_mode)
+                                 ext_mode=args.ext_mode)
             try:
                 pipe.run(batches(), emit)
             finally:
@@ -505,10 +499,9 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
                     "post_redo", "post_dispatch", "late"))
                 + f"; downgraded batches {st['seed_downgrades']}",
                 file=sys.stderr)
-            route = f"native route, {pipe.ba.ext_mode} mode, " \
-                f"{pipe.ba.harvest_workers} harvester threads" if native \
-                else "python route"
-            print(f"[M::mem] extension ({route}): {st['waves']} waves, "
+            print(f"[M::mem] extension (native route, {pipe.ba.ext_mode} "
+                  f"mode, {pipe.ba.harvest_workers} harvester threads): "
+                  f"{st['waves']} waves, "
                   f"{st['ext_tasks_device']} device tasks, "
                   f"{st['ext_tasks_host']} host tasks (oversize "
                   f"{st['host_oversize_q']} + {st['host_oversize_t']}, "
@@ -523,7 +516,7 @@ def _mem(args, argv, opt, pid: int, nprocs: int, devices=None,
         if bucket is not None:
             from .pipeline import sort
             sort.merge_sorted_bam(bucket.close(), args.output,
-                                  fm.bns.anns, header, native=native)
+                                  fm.bns.anns, header)
             print(f"[M::mem] sorted BAM written to {args.output}",
                   file=sys.stderr)
         elif out is not sys.stdout:

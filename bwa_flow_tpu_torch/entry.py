@@ -11,9 +11,10 @@ package:
     n-device mesh (index replicas, read shards, seed program and coupled
     extension per shard, the psum merges), then the production pipeline
     with n shards, whose SAM must equal the one-device SAM. The JAX
-    package skips that second half without its native extensions; here
-    it runs the pure-Python route, whose sharded waves need no native
-    code, so it always runs.
+    package skips that second half without its native extensions; the
+    port's host libraries build at first use, so it always runs, with
+    device waves on every shard (--ext-mode waves, nothing drained on
+    the host, no harvester).
 
 Both run on `cuda` unless the caller asks for the CPU. A device list may
 repeat a device, so one card, or the CPU, can host n shards.
@@ -151,12 +152,13 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     # the production pipeline sharded over the same devices must give
     # the one-device SAM byte for byte
     def run_pipe(devs):
-        # the pure-Python route: its sharded waves run at any batch size
-        # (the native route drains shards of at most 64 reads on the host)
+        # waves mode with no host drain and no harvester: every task
+        # that fits runs in a device wave, on every shard
         pipe = AlignPipeline(MemOpt(), fm, paired=False, n_workers=0,
-                             devices=devs, native=False,
+                             devices=devs, ext_mode="waves",
                              aligner_kw=dict(smem_L=L, wave_cap=64,
-                                             qmax=64, tmax=192))
+                                             qmax=64, tmax=192, drain_max=0,
+                                             harvest_workers=0))
         done: list = []
         try:
             rds = [Read(name=f"d{i}", seq=q[i, :40].astype(np.uint8),
@@ -173,5 +175,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> dict:
     if sam_n != sam_one:
         raise RuntimeError("the sharded production pipeline diverges from "
                            "the one-device run")
+    if any(sh["waves"] == 0 for sh in stats["shards"]):
+        raise RuntimeError("a shard of the sharded production pipeline "
+                           "ran no device wave")
     return dict(hist=hist.tolist(), score_sum=int(score_sum),
                 shards=stats["shards"])

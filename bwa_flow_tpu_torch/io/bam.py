@@ -8,15 +8,14 @@ BAM header, and SAM-line -> BAM record encoding (SAM spec §4.2), so the
 writer stays dependency-free.
 
 The writers encode and compress with the _bam host library
-(csrc/host/_bam.cpp: batch encoder, threaded BGZF; byte-identical
-records). The Python encoder here is its golden specification, taken
-when the caller passes native=False or sets BWA_TPU_NO_NATIVE_BAM (the
-JAX package's switch).
+(csrc/host/_bam.cpp: batch encoder, threaded BGZF). Its golden
+specification is the JAX package's Python encoder
+(bwa_flow_tpu/io/bam.py), which the tests hold its records to byte for
+byte.
 """
 
 from __future__ import annotations
 
-import os
 import struct
 import zlib
 
@@ -25,17 +24,6 @@ from .. import _build
 BGZF_THREADS = 4   # the _bam library's deflate threads a BGZF call
 BGZF_EOF = bytes.fromhex(
     "1f8b08040000000000ff0600424302001b0003000000000000000000")
-
-_SEQ_CODE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
-_CIGAR_OP = {c: i for i, c in enumerate("MIDNSHP=X")}
-
-
-def native_bam(native: bool = True):
-    """The _bam host library, or None when the caller asks for the
-    Python encoder: native=False, or BWA_TPU_NO_NATIVE_BAM set."""
-    if not native or os.environ.get("BWA_TPU_NO_NATIVE_BAM"):
-        return None
-    return _build.host_module("_bam")
 
 
 def bgzf_block(payload: bytes) -> bytes:
@@ -81,22 +69,6 @@ def bgzf_decompress(data: bytes) -> bytes:
     return b"".join(out)
 
 
-def reg2bin(beg: int, end: int) -> int:
-    """SAM spec §5.3 bin calculation."""
-    end -= 1
-    if beg >> 14 == end >> 14:
-        return ((1 << 15) - 1) // 7 + (beg >> 14)
-    if beg >> 17 == end >> 17:
-        return ((1 << 12) - 1) // 7 + (beg >> 17)
-    if beg >> 20 == end >> 20:
-        return ((1 << 9) - 1) // 7 + (beg >> 20)
-    if beg >> 23 == end >> 23:
-        return ((1 << 6) - 1) // 7 + (beg >> 23)
-    if beg >> 26 == end >> 26:
-        return ((1 << 3) - 1) // 7 + (beg >> 26)
-    return 0
-
-
 def bam_header_bytes(anns, text: str = "") -> bytes:
     out = [b"BAM\x01", struct.pack("<i", len(text))]
     out.append(text.encode())
@@ -107,89 +79,6 @@ def bam_header_bytes(anns, text: str = "") -> bytes:
         out.append(name)
         out.append(struct.pack("<i", ann.len))
     return b"".join(out)
-
-
-def _encode_tags(fields: list[str]) -> bytes:
-    out = bytearray()
-    for tag in fields:
-        name, typ, val = tag.split(":", 2)
-        out += name.encode()
-        if typ == "i":
-            v = int(val)
-            if -(1 << 31) <= v < (1 << 31):
-                out += b"i" + struct.pack("<i", v)
-            else:
-                raise ValueError(f"tag int out of range: {tag}")
-        elif typ == "A":
-            out += b"A" + val.encode()[:1]
-        elif typ == "f":
-            out += b"f" + struct.pack("<f", float(val))
-        elif typ == "Z":
-            out += b"Z" + val.encode() + b"\x00"
-        elif typ == "H":
-            out += b"H" + val.encode() + b"\x00"
-        elif typ == "B":
-            sub = val.split(",")
-            code = sub[0]
-            nums = sub[1:]
-            fmt = {"c": "b", "C": "B", "s": "h", "S": "H", "i": "i",
-                   "I": "I", "f": "f"}[code]
-            out += b"B" + code.encode() + struct.pack("<i", len(nums))
-            conv = float if code == "f" else int
-            for x in nums:
-                out += struct.pack("<" + fmt, conv(x))
-        else:
-            raise ValueError(f"unsupported tag type {typ}")
-    return bytes(out)
-
-
-def _parse_cigar(cigar: str):
-    ops = []
-    n = 0
-    for c in cigar:
-        if c.isdigit():
-            n = n * 10 + ord(c) - 48
-        else:
-            ops.append((n, _CIGAR_OP[c]))
-            n = 0
-    return ops
-
-
-def sam_line_to_bam(line: str, name_to_tid) -> bytes:
-    """Encode one SAM alignment line as a raw (uncompressed) BAM record,
-    including the leading block_size."""
-    f = line.rstrip("\n").split("\t")
-    qname, flag, rname, pos, mapq, cigar = \
-        f[0], int(f[1]), f[2], int(f[3]), int(f[4]), f[5]
-    rnext, pnext, tlen, seq, qual = f[6], int(f[7]), int(f[8]), f[9], f[10]
-    tid = name_to_tid.get(rname, -1)
-    mtid = tid if rnext == "=" else name_to_tid.get(rnext, -1)
-    cig = [] if cigar == "*" else _parse_cigar(cigar)
-    l_seq = 0 if seq == "*" else len(seq)
-    rlen = sum(ln for ln, op in cig if op in (0, 2, 3, 7, 8)) or 1
-    bin_ = reg2bin(pos - 1, pos - 1 + rlen) if pos > 0 else 4680
-    name_b = qname.encode() + b"\x00"
-    body = bytearray()
-    body += struct.pack("<iiBBHHHiiii", tid, pos - 1, len(name_b), mapq,
-                        bin_, len(cig), flag, l_seq, mtid, pnext - 1, tlen)
-    body += name_b
-    for ln, op in cig:
-        body += struct.pack("<I", (ln << 4) | op)
-    if l_seq:
-        nib = bytearray((l_seq + 1) // 2)
-        for i, ch in enumerate(seq):
-            code = _SEQ_CODE.get(ch.upper(), 15)
-            if i % 2 == 0:
-                nib[i // 2] = code << 4
-            else:
-                nib[i // 2] |= code
-        body += bytes(nib)
-        if qual == "*":
-            body += b"\xff" * l_seq
-        else:
-            body += bytes((min(max(ord(c) - 33, 0), 93) for c in qual))
-    body += _encode_tags(f[11:])
-    return struct.pack("<i", len(body)) + bytes(body)
 
 
 def decode_bam_records(data: bytes):
@@ -226,11 +115,9 @@ class BamWriter:
     """Streaming BGZF BAM writer (WriteOutput stage analog,
     src/Pipeline.cpp:828-892)."""
 
-    def __init__(self, path, anns, header_text: str = "",
-                 native: bool = True):
-        self._bam = native_bam(native)
+    def __init__(self, path, anns, header_text: str = ""):
+        self._bam = _build.host_module("_bam")
         self.fh = open(path, "wb") if not hasattr(path, "write") else path
-        self.name_to_tid = {ann.name: i for i, ann in enumerate(anns)}
         self._names = b"".join(a.name.encode() + b"\x00" for a in anns)
         self._buf = bytearray()
         self._write_raw(bam_header_bytes(anns, header_text))
@@ -240,22 +127,12 @@ class BamWriter:
         n_full = (len(self._buf) // 0xFF00) * 0xFF00
         if not n_full:
             return
-        if self._bam is not None:
-            self.fh.write(self._bam.bgzf(bytes(self._buf[:n_full]), 6,
-                                         BGZF_THREADS))
-            del self._buf[:n_full]
-            return
-        while len(self._buf) >= 0xFF00:
-            self.fh.write(bgzf_block(bytes(self._buf[:0xFF00])))
-            del self._buf[:0xFF00]
+        self.fh.write(self._bam.bgzf(bytes(self._buf[:n_full]), 6,
+                                     BGZF_THREADS))
+        del self._buf[:n_full]
 
     def write_sam_text(self, sam: str) -> None:
-        if self._bam is not None:
-            self._write_raw(self._bam.sam_to_bam(sam, self._names))
-            return
-        for line in sam.splitlines():
-            if line and not line.startswith("@"):
-                self._write_raw(sam_line_to_bam(line, self.name_to_tid))
+        self._write_raw(self._bam.sam_to_bam(sam, self._names))
 
     def write_record(self, raw: bytes) -> None:
         self._write_raw(raw)

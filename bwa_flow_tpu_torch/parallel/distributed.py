@@ -345,9 +345,8 @@ def allgather_i64(rows: np.ndarray) -> np.ndarray:
 def merge_markdup_signatures(state) -> None:
     """Union all ranks' duplicate signatures into this rank's state
     (optional strictness pass; the reference keeps markdup per rank).
-    Either state's items fit int64: MarkDupState's are Python ints of
-    bins and positions, NativeMarkDupState's uint64 triples stay below
-    2^63 (its docstring)."""
+    NativeMarkDupState's uint64 triples stay below 2^63 (its
+    docstring), so they fit int64."""
     rows = np.asarray(state.signature_items(), dtype=np.int64)
     if rows.size == 0:
         rows = np.zeros((0, 3), dtype=np.int64)

@@ -1,29 +1,25 @@
 """Batched device aligner — the device compute path of the pipeline.
 
-Port of bwa_flow_tpu/pipeline/batch.py, both of its routes. The native
-route (`native=True`, the default; the JAX package takes it when its
-extensions are built) runs stages 3-4 in the port's host libraries
-(csrc/host, built by _build): C++ chaining, and per-read extension state
-machines in the _wave driver, with Python moving descriptor waves to the
-device and results back, and harvester threads running reads on the
-exact scalar kernel meanwhile. Its extension mode (`ext_mode`, else
-BWA_TPU_EXT, else "host", as in the JAX package): "host" runs every
-task on the harvesters and no ksw kernel; "waves" runs device waves and
-leaves the harvesters a reserve. The pure-Python route (`native=False`,
-the JAX package without its extensions) runs, per batch:
+Port of bwa_flow_tpu/pipeline/batch.py's native route (the one the JAX
+package takes when its extensions are built). Per batch:
 
   1. device SMEM seeding with fused SA resolution (ops/smem_torch.py)
   2. device SA probes for what the seed program did not resolve
-  3. host chaining + filters (ops/chain.py, exact bwa semantics)
-  4. wave extension: every read owns a chain2aln_tasks generator
-     (ops/region.py); each wave gathers at most one pending seed task per
-     read into a fixed-shape device batch (ops/chain2aln_torch.py, a
-     CUDA ksw_extend2 kernel on the card), runs it, and feeds results
-     back. Sequencing within a read (bwa's seed-containment skips) is
-     exact; parallelism comes from batching across reads.
+  3. chaining + filters in the port's host library (ops/chain_native.py,
+     exact bwa semantics); reads long enough for the seed-SW filter
+     chain in Python (chain_read, ops/chain.py)
+  4. extension: per-read state machines in the _wave driver
+     (ops/wave_native.py), with Python moving descriptor waves to the
+     device (ops/chain2aln_torch.py, a CUDA ksw_extend2 kernel on the
+     card) and results back, and harvester threads running reads on the
+     exact scalar kernel meanwhile. The extension mode (`ext_mode`,
+     else BWA_TPU_EXT, else "host", as in the JAX package): "host" runs
+     every task on the harvesters and no ksw kernel; "waves" runs device
+     waves and leaves the harvesters a reserve.
   5. host dedup/patch/primary marking + SAM; paired-end batches
      (interleaved mates) estimate the insert size, rescue mates and
-     pair (ops/pe.py) instead.
+     pair (ops/pe.py) instead. AlignPipeline runs these in the port's
+     host library (ops/region_native.py).
 
 With several devices (`devices`), steps 1, 2 and 4 run per shard of the
 batch on each device's index replica (parallel/mesh.py); the host
@@ -41,8 +37,8 @@ uploaded from page-locked memory without a wait (upload), so queueing
 it never waits behind the card's earlier work.
 
 Tasks too large for the device shapes run on the host scalar kernel
-inline. A device error, on any shard, propagates and fails the run. No
-route switches to the other on a failure. So do three checks the JAX
+inline. A device error, on any shard, propagates and fails the run;
+nothing switches to the host on a failure. So do three checks the JAX
 package runs, which here raise where it
 degrades to the host for the rest of the run:
 
@@ -87,7 +83,7 @@ from ..parallel.mesh import on_stream, replicate_fm, run_shards, shard_streams
 from ..utils.opts import MEM_F_PRIMARY5, MemOpt
 
 SA_CHUNK = 65536   # SA probes per device LF-walk call
-# the native route's small kernel shape class: tasks whose query sides
+# the extension's small kernel shape class: tasks whose query sides
 # are both at most this long (JAX batch.py:617-620)
 Q_SMALL = 96
 # reads a harvester claims per steal
@@ -268,26 +264,24 @@ class BatchAligner:
     against the golden model (AlignPipeline runs its own sample); a
     mismatch raises DeviceResultError.
 
-    `native` picks the route (module docstring); `ext_mode`,
-    `drain_max` and `harvest_workers` steer the native route's
-    extension as in the JAX package (batch.py:88-113): in "host" mode
-    every wave is a drained tail (drain_max 2^30) and ncpu - 1
-    harvester threads run the reads; in "waves" mode waves of at most
-    min(512, wave_cap // 16) pending reads drain on the host, and
-    min(2, ncpu - 2) harvesters share the work with the device."""
+    `ext_mode`, `drain_max` and `harvest_workers` steer the extension
+    as in the JAX package (batch.py:88-113): in "host" mode every wave
+    is a drained tail (drain_max 2^30) and ncpu - 1 harvester threads
+    run the reads; in "waves" mode waves of at most min(512, wave_cap //
+    16) pending reads drain on the host, and min(2, ncpu - 2)
+    harvesters share the work with the device. drain_max=0 drains
+    nothing, on any number of shards."""
 
     def __init__(self, opt: MemOpt, fm: FMIndex, smem_L: int = 160,
                  wave_cap: int = 4096, qmax: int = 160, tmax: int = 512,
                  device=None, devices=None, validate_every: int = 0,
                  validate_sample: int = 2, device_timeout: float = 300.0,
-                 native: bool = True, ext_mode: str | None = None,
-                 drain_max: int | None = None,
+                 ext_mode: str | None = None, drain_max: int | None = None,
                  harvest_workers: int | None = None):
         devs = [resolve_device(d) for d in (devices or [device])]
         self.device = devs[0]
         self.opt = opt
         self.fm = fm
-        self.native = native
         self.ext_mode = ext_mode or os.environ.get("BWA_TPU_EXT", "host")
         if self.ext_mode not in ("host", "waves"):
             raise ValueError(f"ext_mode {self.ext_mode!r}: expected host "
@@ -324,7 +318,7 @@ class BatchAligner:
         self.stats = {"reads": 0, "sa_host_redo": 0,
                       "ext_tasks_device": 0, "ext_tasks_host": 0,
                       "host_oversize_q": 0, "host_oversize_t": 0,
-                      "host_sched": 0, "waves": 0, "band_retries": 0,
+                      "host_sched": 0, "waves": 0,
                       "validations": 0,
                       "seed_batches": 0, "seed_s": 0.0,
                       # the hook that enqueued each next batch's seed
@@ -431,10 +425,10 @@ class BatchAligner:
             cb, post_dispatch = post_dispatch, None
             if cb is not None:
                 cb()
-        # the owners triplets serve only the Python chain path; the
-        # native route rebuilds them for the reads it sends there
+        # no owners triplets: the reads that chain in Python rebuild
+        # theirs (_luts)
         rows, offs, owners = sa_probe_layout(self.opt, all_intvs,
-                                             build_owners=not self.native)
+                                             build_owners=False)
         vals_all = np.empty(len(rows), dtype=np.int64)
         if not len(rows):
             fire()
@@ -624,37 +618,29 @@ class BatchAligner:
                                     if v is not None))
         return IntvBatch.concat(batches)
 
-    @staticmethod
-    def _luts_from(owners, vals, n):
-        luts = [dict() for _ in range(n)]
-        for (ridx, x0, k), v in zip(owners, vals):
+    def _luts(self, all_intvs, sa_flat):
+        """Per read, (x0, k) -> the occurrence's SA value (sa_flat
+        carries no owners: resolve_sa_flat)."""
+        luts = [dict() for _ in range(len(all_intvs))]
+        for (ridx, x0, k), v in zip(
+                chain_native.owners_for(self.opt, all_intvs), sa_flat[0]):
             luts[ridx][(x0, k)] = int(v)
         return luts
 
-    def _luts(self, all_intvs, sa_flat):
-        vals, _, owners = sa_flat
-        if owners is None:
-            owners = chain_native.owners_for(self.opt, all_intvs)
-        return self._luts_from(owners, vals, len(all_intvs))
-
     def chain_reads(self, seqs, all_intvs, sa_flat):
-        """Stage 3: host chaining (exact bwa semantics) — the native
-        C++ stage on the native route, Python otherwise; long reads the
-        seed-SW filter applies to always take the Python path."""
+        """Stage 3: host chaining (exact bwa semantics) in the native C++
+        stage; long reads the seed-SW filter applies to take the Python
+        path."""
         vals, off, _ = sa_flat
-        if self.native:
-            out = chain_native.chain_batch(self.opt, self.fm, seqs,
-                                           all_intvs, vals, off)
-            need = [r for r, c in enumerate(out) if c is None]
-            if need:
-                luts = self._luts(all_intvs, sa_flat)
-                for r in need:
-                    out[r] = chain_read(self.opt, self.fm, seqs[r],
-                                        all_intvs[r], luts[r])
-            return out
-        luts = self._luts(all_intvs, sa_flat)
-        return [chain_read(self.opt, self.fm, s, iv, lut)
-                for s, iv, lut in zip(seqs, all_intvs, luts)]
+        out = chain_native.chain_batch(self.opt, self.fm, seqs, all_intvs,
+                                       vals, off)
+        need = [r for r, c in enumerate(out) if c is None]
+        if need:
+            luts = self._luts(all_intvs, sa_flat)
+            for r in need:
+                out[r] = chain_read(self.opt, self.fm, seqs[r],
+                                    all_intvs[r], luts[r])
+        return out
 
     def align_regs(self, seqs: list[np.ndarray], names=None) -> list:
         """Seed + chain + extend + dedup for a batch of encoded reads;
@@ -666,12 +652,8 @@ class BatchAligner:
         h = self.seeds_dispatch(seqs)
         all_intvs = self.seeds_collect(h)
         sa_flat = self.resolve_sa_flat(all_intvs, h)
-        if self.native:
-            all_regs = region_native.unpack_regs(*self.extend_waves_packed(
-                seqs, all_intvs, sa_flat, names=names))
-        else:
-            all_chains = self.chain_reads(seqs, all_intvs, sa_flat)
-            all_regs = self.extend_waves(seqs, all_chains, names)
+        all_regs = region_native.unpack_regs(*self.extend_waves_packed(
+            seqs, all_intvs, sa_flat, names=names))
         final = [dedup_regs(opt, fm, seq, regs)
                  for seq, regs in zip(seqs, all_regs)]
         if self.validate_every and self._batch_no % self.validate_every == 0:
@@ -693,7 +675,7 @@ class BatchAligner:
                                  f"{self._batch_no}")
 
     # ------------------------------------------------------------------
-    # the native route's extension (JAX batch.py:516-952)
+    # the extension (JAX batch.py:516-952)
 
     def extend_async(self, seqs, all_intvs, sa_flat, names=None):
         """Run extend_waves_packed in a worker thread; returns join(),
@@ -741,7 +723,7 @@ class BatchAligner:
 
     def extend_waves_packed(self, seqs, all_intvs, sa_flat, pinned=None,
                             names=None, abort=None):
-        """Stage 3-4 of the native route: C++ chaining and per-read
+        """Stages 3-4: C++ chaining and per-read
         extension state machines (one _wave driver a shard), with this
         thread moving descriptor waves to each shard's device, two wave
         streams a shard served round-robin, while harvester threads run
@@ -807,7 +789,7 @@ class BatchAligner:
                                  inflight=[0, 0]))
                 needs_global.extend(lo + r for r in needs)
         # the tail a shard drains on the host instead of packing a wave
-        drain_lim = self.drain_max if S == 1 \
+        drain_lim = self.drain_max if S == 1 or not self.drain_max \
             else max(64, self.drain_max // S)
         harvesting = self.harvest_workers > 0
         stop_ev = threading.Event()
@@ -958,201 +940,6 @@ class BatchAligner:
                            sum(len(c.seeds) for c in chains))
             rows, frac, off = wave_native.splice(rows, frac, off, py)
         return rows, frac, off
-
-    # ------------------------------------------------------------------
-    def extend_waves(self, seqs: list[np.ndarray], all_chains,
-                     names=None) -> list:
-        """Stage 4: cross-read wave extension on the device (no dedup).
-
-        Each shard's reads form waves on the shard's device, addressed by
-        their shard-local index in its resident read block (global read
-        ids never reach the device). The loop serves the (shard, stream)
-        slots round-robin, so every device keeps two waves in flight.
-
-        Each wave runs ONE banded try per extension side; bwa's band
-        doubling (bwamem.c:737-744) is driven from here: a task whose
-        max_off crossed the threshold is re-enqueued into a later wave
-        with the doubled band (stage 1 = redo left@2w+right, stage 2 =
-        right-only@2w with the saved left half).
-
-        Every wave row passes the structural check (bad_rows) before it
-        is applied; a bad one raises DeviceResultError naming the read
-        (its index in the batch, and its name from `names`) and the
-        field."""
-        opt, fm = self.opt, self.fm
-        max_mat = int(opt.mat.max())
-        all_regs = [[] for _ in seqs]
-        dev_shards = self._dev_shards or [(0, len(seqs), None)]
-        S = len(dev_shards)
-        # each read's shard, and its row in the shard's resident block
-        # (-1: not device-seeded, too long for the smem_L bucket)
-        shard_of = [S - 1] * len(seqs)
-        dev_row = [-1] * len(seqs)
-        for k, (lo, hi, reads) in enumerate(dev_shards):
-            for r in range(lo, min(hi, len(seqs))):
-                shard_of[r] = k
-                if reads is not None and len(seqs[r]) <= self.smem_L:
-                    dev_row[r] = r - lo
-
-        def read_gen(ridx):
-            for c in all_chains[ridx]:
-                yield from regionops.chain2aln_tasks(
-                    opt, fm, len(seqs[ridx]), seqs[ridx], c, all_regs[ridx])
-
-        gens = {}
-        # per shard: ridx -> [task, stage, saved_left_6tuple|None]
-        pending = [dict() for _ in range(S)]
-        for ridx in range(len(seqs)):
-            g = read_gen(ridx)
-            t = next(g, None)
-            if t is not None:
-                gens[ridx] = g
-                pending[shard_of[ridx]][ridx] = [t, 0, None]
-
-        def advance(ridx, result):
-            """Feed a result; pull the next device-sized task (running
-            oversized ones on the host inline). False when done."""
-            g = gens[ridx]
-            pend = pending[shard_of[ridx]]
-            res = result
-            while True:
-                try:
-                    t = g.send(res)
-                except StopIteration:
-                    del gens[ridx]
-                    del pend[ridx]
-                    return False
-                if self._fits(t, dev_row[ridx]):
-                    pend[ridx] = [t, 0, None]
-                    return True
-                self._stat("ext_tasks_host")
-                res = regionops.run_task_host(opt, t)
-
-        # bootstrap: oversized first tasks
-        for pend in pending:
-            for ridx in list(pend):
-                t = pend[ridx][0]
-                if not self._fits(t, dev_row[ridx]):
-                    self._stat("ext_tasks_host")
-                    advance(ridx, regionops.run_task_host(opt, t))
-
-        W = opt.w
-        RETRY_OFF = (W >> 1) + (W >> 2)   # max_off threshold at try 0
-
-        def handle(ridx, row):
-            """Apply one wave result: finish the task or re-enqueue a
-            band-doubling retry."""
-            entry = pending[shard_of[ridx]][ridx]
-            t, stage, lpart = entry
-            (ls, lq, lt_, lg, lgs, lmo,
-             rs_, rq, rt, rg, rgs, rmo) = row
-            has_left = len(t.q_left) > 0
-            has_right = len(t.q_right) > 0
-            if stage == 0 and has_left and lmo >= RETRY_OFF:
-                entry[1] = 1      # redo left@2w (+right with new h0)
-                self._stat("band_retries")
-                return
-            if stage in (0, 1):
-                aw0 = (W << 1) if (stage == 1 and has_left) else W
-                lfinal = (ls, lq, lt_, lg, lgs, aw0)
-                sc0 = ls
-                if has_right and rs_ != sc0 and rmo >= RETRY_OFF:
-                    entry[1] = 2  # right-only retry @2w, h0 = sc0
-                    entry[2] = lfinal
-                    self._stat("band_retries")
-                    return
-                rfinal = (rs_, rq, rt, rg, rgs, W)
-            else:  # stage 2: right half from this row, left half saved
-                lfinal = lpart
-                rfinal = (rs_, rq, rt, rg, rgs, W << 1)
-            advance(ridx, lfinal + rfinal)
-
-        from ..utils.trace import GLOBAL as tracer
-        # per shard, two wave streams over disjoint reads: while one
-        # stream's result is copied back and its next wave packed, the
-        # other computes
-        busy: set = set()
-
-        def pack_and_run(k, buf):
-            with tracer.span("wave.pack"):
-                buf.reset()
-                slots = []
-                for ridx, (t, stage, lpart) in pending[k].items():
-                    if ridx in busy:
-                        continue
-                    if stage == 0:
-                        i = buf.add(t, dev_row[ridx], W, W)
-                    elif stage == 1:
-                        i = buf.add(t, dev_row[ridx], W << 1, W)
-                    else:
-                        i = buf.add(t, dev_row[ridx], W, W << 1,
-                                    skip_left=True, h0=lpart[0])
-                    if i < 0:
-                        break  # buffer full: the next wave takes the rest
-                    slots.append(ridx)
-            if not slots:
-                return None
-            busy.update(slots)
-            desc = buf.desc[:, :len(slots)].copy()
-            n0 = (extend_cuda.n_launches, extend_cuda.n_launches16)
-            with tracer.span("wave.dispatch"):
-                # the wave's upload waits for the stream: watch it
-                self.wait(self.shards[k]["device"])
-                out = buf.run_async(opt, self.shards[k]["dfm"],
-                                    dev_shards[k][2], self.smem_L)
-            # waves launch from this thread only, so the counts' change
-            # is this wave's
-            self._stat("launches", extend_cuda.n_launches - n0[0], shard=k)
-            self._stat("launches16", extend_cuda.n_launches16 - n0[1],
-                       shard=k)
-            self._stat("waves")
-            self._stat("ext_tasks_device", len(slots))
-            self._stat("waves", shard=k)
-            self._stat("ext_tasks_device", len(slots), shard=k)
-            return slots, desc, out
-
-        def apply(entry):
-            slots, desc, out = entry
-            with tracer.span("wave.fetch"):
-                rows = self.fetch(out)
-            with tracer.span("wave.apply"):
-                bad = bad_rows(desc, rows, max_mat)
-                if bad is not None:
-                    raise_bad_row(bad, rows, slots[bad[0]], names)
-                rows = rows.T.tolist()
-                for i, ridx in enumerate(slots):
-                    busy.discard(ridx)
-                    handle(ridx, rows[i])
-
-        # (shard, stream) slots served round-robin; with one shard this is
-        # the two streams taking turns
-        order = [(k, self.shards[k]["bufs"][b]) for k in range(S)
-                 for b in (0, 1)]
-        streams = [pack_and_run(k, buf) for k, buf in order]
-        s = 0
-        while any(e is not None for e in streams):
-            if streams[s] is not None:
-                apply(streams[s])
-                streams[s] = None
-                streams[s] = pack_and_run(*order[s])
-            o = (s + 1) % len(order)
-            if streams[o] is None:
-                streams[o] = pack_and_run(*order[o])
-            s = o
-        return all_regs
-
-    def _fits(self, t, read_idx: int) -> bool:
-        """Device-shape check for a descriptor task. Target spans count
-        clamped to qlen_side + 2w + 1, the most any band-doubling retry
-        can reach, so a task that fits at try 0 fits every retry."""
-        W2 = (self.opt.w << 1) + 1
-        qr = t.l_query - (t.qbeg + t.slen)
-        return (read_idx >= 0
-                and t.qbeg <= self.qmax
-                and qr <= self.qmax
-                and min(t.rbeg - t.rmax0, t.qbeg + W2) <= self.tmax
-                and min(t.rmax1 - (t.rbeg + t.slen),
-                        qr + W2) <= self.tmax)
 
     # ------------------------------------------------------------------
     def align_se(self, reads: list[Read], n_processed: int = 0,

@@ -1,37 +1,27 @@
 """Host dataflow runtime: device stages on the main process, host stages
-in a worker pool or native code, batches in a two-deep software
-pipeline.
+in native code (a worker pool for the few reads that take the Python
+tail), batches in a two-deep software pipeline.
 
-Port of bwa_flow_tpu/pipeline/dataflow.py, both of its routes. Batch
-N+1's seed program is enqueued (dispatch_next, AlignPipeline.run) the
-moment batch N's last dependent device work is queued, from the hook
-that comes first: the seed collect's, after the redo programs (an index
-with a dense SA); the SA probes', after the probe walks (without one);
-or the pipeline's own call after a collect that succeeded. On a card
-the seed program's machines are kernels (ops/smem_cuda.py) on the
-shard's own seed stream, so the enqueue returns at once and the card
-seeds batch N+1 while the host finishes batch N. On the native route
-(the default; pipeline/batch.py):
+Port of bwa_flow_tpu/pipeline/dataflow.py's native route. Batch N+1's
+seed program is enqueued (dispatch_next, AlignPipeline.run) the moment
+batch N's last dependent device work is queued, from the hook that
+comes first: the seed collect's, after the redo programs (an index with
+a dense SA); the SA probes', after the probe walks (without one); or the
+pipeline's own call after a collect that succeeded. On a card the seed
+program's machines are kernels (ops/smem_cuda.py) on the shard's own
+seed stream, so the enqueue returns at once and the card seeds batch
+N+1 while the host finishes batch N. Then (pipeline/batch.py):
 
   - the main thread collects batch N's seeds and SA values, then starts
     batch N's chaining and extension (BatchAligner.extend_async) in a
     worker thread;
   - batch N's packed regions feed the native tails in the tail thread
     (ops/region_native.py: se_tail_batch; pe_tail_batch, -I included),
-    GIL released; the -V flag and qual-less reads take the Python tail
-    (after the native dedup_batch, for paired-end batches).
-
-On the pure-Python route (`native=False`):
-
-  - the device stages (SMEM seeding, SA probes, extension waves) run on
-    the main process, which owns the torch device;
-  - the host stages (seed chaining, region dedup/primary/SAM; for
-    paired-end batches dedup, then mate rescue, pairing and SAM) are
-    GIL-bound Python, so they run in a process pool; the FM index
-    reaches the workers by fork copy-on-write;
-  - while batch N's host tail runs in the pool (from a background
-    thread), batch N+1's chaining and device work run on the main
-    thread, and the card seeds batch N+2;
+    GIL released, while batch N+1's seeds are collected;
+  - the -V flag (MEM_F_REF_HDR) and reads without qualities (FASTA)
+    take the Python tail in the pool (after the native dedup_batch, for
+    paired-end batches), whose workers get the FM index by fork
+    copy-on-write;
   - finished batches are emitted in order on the main process.
 
 With several devices (`devices`), the batch aligner cuts each batch
@@ -63,8 +53,7 @@ from ..io.sam import Read
 from ..ops import pe as peops
 from ..ops import region_native
 from ..utils.opts import MemOpt
-from .batch import (BatchAligner, chain_read, check_against_golden,
-                    dedup_regs, se_sam)
+from .batch import BatchAligner, check_against_golden, dedup_regs, se_sam
 
 _G: dict = {}
 
@@ -73,12 +62,6 @@ def _init_worker(opt, fm, rg_id=""):
     _G["opt"] = opt
     _G["fm"] = fm
     _G["rg_id"] = rg_id
-
-
-def _chain_worker(arg):
-    """Stage: seeds -> filtered chains for a slice of reads."""
-    return [chain_read(_G["opt"], _G["fm"], seq, intvs, lut)
-            for seq, intvs, lut in arg]
 
 
 def _se_tail_worker(arg):
@@ -91,12 +74,6 @@ def _se_tail_worker(arg):
                _G["rg_id"])
         out.append(s.sam)
     return out
-
-
-def _dedup_worker(arg):
-    """Stage: raw regions -> dedup/patched regions for a slice of reads."""
-    opt, fm = _G["opt"], _G["fm"]
-    return [dedup_regs(opt, fm, seq, regs) for seq, regs in arg]
 
 
 def _pe_pair_worker(pes, pairs):
@@ -115,11 +92,6 @@ def _pe_pair_worker(pes, pairs):
     return out
 
 
-def _is_packed(regs) -> bool:
-    return isinstance(regs, tuple) and len(regs) == 4 \
-        and regs[0] == "packed"
-
-
 def _slices(items, n_slices):
     k = max(1, -(-len(items) // n_slices))
     return [items[i:i + k] for i in range(0, len(items), k)]
@@ -130,10 +102,11 @@ class AlignPipeline:
     batches hold mates interleaved; `pes0` (the -I option) replaces the
     per-batch insert-size estimate. `devices`, a list of torch devices,
     shards every batch over them (BatchAligner); else the run is on
-    `device`. validate_every, validate_sample, device_timeout, `native`
-    (the route) and `ext_mode` go to the BatchAligner (one device, every
-    shard, every rank alike); validation runs here, on each validated
-    batch's regions before its tail."""
+    `device`. validate_every, validate_sample, device_timeout and
+    `ext_mode` go to the BatchAligner (one device, every shard, every
+    rank alike); validation runs here, on each validated batch's
+    regions before its tail. The pool (`n_workers` > 0) runs the Python
+    tails only (module docstring)."""
 
     def __init__(self, opt: MemOpt, fm, paired: bool = False,
                  n_workers: int = 0, rg_id: str = "", pes0=None,
@@ -141,6 +114,10 @@ class AlignPipeline:
                  device=None, devices=None, validate_every: int = 0,
                  validate_sample: int = 2, device_timeout: float = 300.0,
                  native: bool = True, ext_mode: str | None = None):
+        # `native` stays only for callers that still pass native=True
+        if native is not True:
+            raise ValueError(f"native={native!r}: the port has one route, "
+                             "the native route (native=True)")
         self.opt = opt
         self.fm = fm
         self.paired = paired
@@ -167,7 +144,7 @@ class AlignPipeline:
                                    validate_every=validate_every,
                                    validate_sample=validate_sample,
                                    device_timeout=device_timeout,
-                                   native=native, ext_mode=ext_mode,
+                                   ext_mode=ext_mode,
                                    **(aligner_kw or {}))
         except BaseException:
             self.close()
@@ -187,12 +164,7 @@ class AlignPipeline:
         parts = self.pool.map(fn, _slices(work, self.n_workers))
         return [x for p in parts for x in p]
 
-    def _chains(self, seqs, intvs, sa_flat):
-        vals, _, owners = sa_flat
-        luts = BatchAligner._luts_from(owners, vals, len(seqs))
-        return self._run_parts(_chain_worker, list(zip(seqs, intvs, luts)))
-
-    def _tail_async(self, batch, all_regs):
+    def _tail_async(self, batch, packed):
         """Run the post-extension tail in a background thread (its work
         uses the pool), inside the span `tail`; returns join() -> the
         finished batch. A tail failure is re-raised at join and fails the
@@ -204,7 +176,7 @@ class AlignPipeline:
         def run_tail():
             try:
                 with tracer.span("tail"):
-                    tail(batch, all_regs)
+                    tail(batch, packed)
             except BaseException as e:  # noqa: BLE001 - re-raised in join
                 box["err"] = e
 
@@ -218,20 +190,19 @@ class AlignPipeline:
             return batch
         return join
 
-    def _tail_se(self, batch, all_regs) -> None:
-        """Native SE tail on packed regions where se_tail_ok holds, else
-        dedup/primary/SAM in the pool."""
-        if _is_packed(all_regs):
-            if region_native.se_tail_ok(self.opt, batch):
-                ctr: dict = {}
-                sams = region_native.se_tail_batch(
-                    self.opt, self.fm, batch, None, self.rg_id,
-                    packed=all_regs[1:], counters=ctr)
-                self._record_tail(ctr)
-                for r, s in zip(batch, sams):
-                    r.sam = s
-                return
-            all_regs = region_native.unpack_regs(*all_regs[1:])
+    def _tail_se(self, batch, packed) -> None:
+        """Native SE tail on the packed regions where se_tail_ok holds,
+        else dedup/primary/SAM in the pool."""
+        if region_native.se_tail_ok(self.opt, batch):
+            ctr: dict = {}
+            sams = region_native.se_tail_batch(
+                self.opt, self.fm, batch, None, self.rg_id, packed=packed,
+                counters=ctr)
+            self._record_tail(ctr)
+            for r, s in zip(batch, sams):
+                r.sam = s
+            return
+        all_regs = region_native.unpack_regs(*packed)
         work = [(r.seq, r.name, r.qual, r.comment, all_regs[i], r.id)
                 for i, r in enumerate(batch)]
         sams = self._run_parts(_se_tail_worker, work)
@@ -251,31 +222,25 @@ class AlignPipeline:
             if k in ctr:
                 self.ba._stat("tail_" + k, ctr[k])
 
-    def _tail_pe(self, batch, all_regs) -> None:
-        """Packed regions (the native route): the native PE tail where
-        pe_tail_ok holds (dedup, insert size unless `pes0`, rescue,
-        pairing, SAM), else the native dedup_batch and the Python pairing
-        below. Otherwise dedup in the pool; the insert-size estimate of
-        the batch on the deduped regions (unless `pes0`); then rescue,
+    def _tail_pe(self, batch, packed) -> None:
+        """The native PE tail on the packed regions where pe_tail_ok
+        holds (dedup, insert size unless `pes0`, rescue, pairing, SAM).
+        Otherwise the native dedup_batch; the insert-size estimate of the
+        batch on the deduped regions (unless `pes0`); then rescue,
         pairing and SAM in the pool. Pair ids are r1.id >> 1, as on the
         golden route."""
-        if _is_packed(all_regs):
-            if region_native.pe_tail_ok(self.opt, batch):
-                ctr: dict = {}
-                sams, _ = region_native.pe_tail_batch(
-                    self.opt, self.fm, batch, None, self.rg_id,
-                    packed=all_regs[1:], pes0=self.pes0, counters=ctr)
-                self._record_tail(ctr)
-                for r, s in zip(batch, sams):
-                    r.sam = s
-                return
-            regs = region_native.dedup_batch(
-                self.opt, self.fm, [r.seq for r in batch],
-                region_native.unpack_regs(*all_regs[1:]))
-        else:
-            regs = self._run_parts(
-                _dedup_worker,
-                [(r.seq, all_regs[i]) for i, r in enumerate(batch)])
+        if region_native.pe_tail_ok(self.opt, batch):
+            ctr: dict = {}
+            sams, _ = region_native.pe_tail_batch(
+                self.opt, self.fm, batch, None, self.rg_id, packed=packed,
+                pes0=self.pes0, counters=ctr)
+            self._record_tail(ctr)
+            for r, s in zip(batch, sams):
+                r.sam = s
+            return
+        regs = region_native.dedup_batch(
+            self.opt, self.fm, [r.seq for r in batch],
+            region_native.unpack_regs(*packed))
         pes = self.pes0 if self.pes0 is not None else peops.mem_pestat(
             self.opt, self.fm.bns.l_pac, regs)
         pairs = []
@@ -297,8 +262,8 @@ class AlignPipeline:
         """Pipelined batch loop (JAX dataflow.py:340-470): collect batch
         N's seeds and SA values; join batch N-1's extension and start
         its host tail (_finish_batch), which overlaps what follows;
-        start batch N's extension (_extend: on the native route in a
-        worker thread). Batch N+1's seed program is enqueued by
+        start batch N's extension in a worker thread
+        (BatchAligner.extend_async). Batch N+1's seed program is enqueued by
         dispatch_next, once, the moment batch N's last dependent device
         work is queued: from the seed collect's hook after the redo
         programs (an index with a dense SA), after the SA probe walks
@@ -375,15 +340,15 @@ class AlignPipeline:
                 if prev is not None:
                     pending = self._finish_batch(prev, pending, emit)
                     prev = None
-                prev = dict(reads=cur, ext=self._extend(cur, intvs,
-                                                        sa_flat))
+                prev = dict(reads=cur, ext=ba.extend_async(
+                    seqs, intvs, sa_flat, [r.name for r in cur]))
                 n_processed += len(cur)
                 cur, cur_box = nxt, nxt_box
             if prev is not None:
                 pending = self._finish_batch(prev, pending, emit)
                 prev = None
         except BaseException:
-            if prev is not None and hasattr(prev["ext"], "abandon"):
+            if prev is not None:
                 prev["ext"].abandon()
             raise
         if pending is not None:
@@ -413,27 +378,6 @@ class AlignPipeline:
         else:
             self._slow_seed_streak = 0
 
-    def _extend(self, batch, intvs, sa_flat):
-        """Start a batch's chaining and extension; returns its join(). The
-        native route runs both in a worker thread (BatchAligner.
-        extend_async) and its join gives packed regions ("packed", rows,
-        frac, off); the pure-Python route chains in the pool and runs the
-        extension waves here, and its join gives the regions."""
-        from ..utils.trace import GLOBAL as tracer
-        seqs, names = [r.seq for r in batch], [r.name for r in batch]
-        if self.ba.native:
-            join = self.ba.extend_async(seqs, intvs, sa_flat, names)
-
-            def packed():
-                return ("packed",) + join()
-            packed.abandon = join.abandon
-            return packed
-        with tracer.span("chain"):
-            chains = self._chains(seqs, intvs, sa_flat)
-        with tracer.span("extend_waves"):
-            regs = self.ba.extend_waves(seqs, chains, names)
-        return lambda: regs
-
     def _validate_sample(self, batch, regs) -> None:
         """Cross-check an evenly spaced sample of validate_sample reads of
         a batch against the golden model, on their pre-dedup device
@@ -453,23 +397,19 @@ class AlignPipeline:
                                  f"{ba._batch_no}")
 
     def _finish_batch(self, prev, pending, emit):
-        """Join `prev`'s extension (on the native route its regions come
-        packed: ("packed", rows, frac, off)), validate `prev` every
-        validate_every batches (on its unpacked regions), emit the batch
-        before it and start `prev`'s tail."""
+        """Join `prev`'s extension (span `extend_waves`; its regions come
+        packed: (rows, frac, off)), validate `prev` every validate_every
+        batches (on its unpacked regions), emit the batch before it and
+        start `prev`'s tail."""
         from ..utils.trace import GLOBAL as tracer
         ba = self.ba
-        if ba.native:
-            with tracer.span("extend_waves"):
-                regs = prev["ext"]()
-        else:
-            regs = prev["ext"]()
+        with tracer.span("extend_waves"):
+            packed = prev["ext"]()
         if ba.validate_every:
             ba._batch_no += 1
             if ba._batch_no % ba.validate_every == 0:
-                self._validate_sample(
-                    prev["reads"], region_native.unpack_regs(*regs[1:])
-                    if _is_packed(regs) else regs)
+                self._validate_sample(prev["reads"],
+                                      region_native.unpack_regs(*packed))
         if pending is not None:
             self._emit(pending, emit)
-        return self._tail_async(prev["reads"], regs)
+        return self._tail_async(prev["reads"], packed)

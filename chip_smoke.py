@@ -2,15 +2,14 @@
 
     python3 chip_smoke.py
 
-`mem` has two routes (pipeline/batch.py): the native route, which the
-CLI takes, with its extension modes host (the default: harvester
-threads run every extension task, no ksw kernel) and waves (device
-waves beside the harvesters); and the pure-Python route
-(cli._mem(..., native=False), python_route() here), which also takes
-the regex markdup stage and the Python BAM encoder. Phases 3, 4, 8 and
-9 hold the pure-Python route; phases 6 and 7 run the native route with
---ext-mode waves; phase 10 runs the native route in both modes; phase
-11 holds the native host libraries to their Python versions.
+`mem` has one route (pipeline/batch.py), with two extension modes:
+host (the default: harvester threads run every extension task, no ksw
+kernel) and waves (device waves beside the harvesters). Phases 3, 4,
+6, 7, 8 and 9 run --ext-mode waves, since they count device waves or
+launches (phase 9's injections and stall, on a few reads, also with no
+host drain and no harvester: waves_carry_every_task); phase 10 runs
+both modes; phase 11 holds the host libraries to their Python versions
+or to known answers.
 
 Phases:
   1. device and build: prints the card (nvidia-smi name, power limit),
@@ -39,17 +38,17 @@ Phases:
   3. the single-end path: a 4.6 Mbp repeat-realistic genome and 8192 x
      151 bp reads (1% substitutions) from fixed seeds; `index` (its
      seconds printed: the native SA-IS builds the suffix array), then
-     `mem -t 8 --batch-reads 4096` on the card through the CLI on the
-     pure-Python route (int32 kernel, regex markdup). Every read must
+     `mem -t 8 --batch-reads 4096 --ext-mode waves` on the card through
+     the CLI (int32 kernel). Every read must
      have exactly one primary record, >= 95%
      mapped, and the int32 kernel must have launched. Then a 256-read
      subset on the card and with --no-device (the port's host golden):
      the two SAMs must be byte-identical apart from @PG.
   4. the paired-end path on the same genome: 8192 FR pairs of 2 x 151
      bp, insert size N(400, 40), 1% substitutions; `mem -t 8
-     --batch-reads 4096 ref.fa r1.fq r2.fq` on the pure-Python route
-     with BWA_TPU_EXTEND16=1 (set for this phase only), so the waves run
-     the int16 kernel. One
+     --batch-reads 4096 --ext-mode waves ref.fa r1.fq r2.fq` with
+     BWA_TPU_EXTEND16=1 (set for this phase only), so the waves run the
+     int16 kernel. One
      primary record per read, >= 95% of reads mapped, >= 90% of pairs
      proper, the int16 kernel launched and the int32 one not; a 256-pair
      subset on the card equals its --no-device SAM apart from @PG.
@@ -65,14 +64,16 @@ Phases:
      version, timed, with its bound; and the time a target row costs it
      (row_cost_ns), the latency that sets its time on the path.
   6. the sorted-BAM path: phase 4's paired-end run again with `--sort`
-     (default 512 buckets), on the native route (native markdup, the
-     _bam encoder) with --ext-mode waves and BWA_TPU_EXTEND16 unset, so its waves run the int32 kernel. The int32 kernel must have launched and the int16
-     one not; the BAM must inflate with gzip and end in the BGZF EOF
-     block, carry the index's contigs, have non-decreasing sort keys
-     with unmapped records last, and hold the same multiset of records
-     as phase 4's pe.sam encoded with the port's sam_line_to_bam (so the
-     two kernels' SAM agree over 8192 pairs). Prints the time split:
-     alignment, bucket writes, merge.
+     (default 512 buckets), with --ext-mode waves and BWA_TPU_EXTEND16
+     unset, so its waves run the int32 kernel. The int32 kernel must
+     have launched and the int16 one not; the BAM must inflate with gzip
+     and end in the BGZF EOF block, carry the index's contigs, have
+     non-decreasing sort keys with unmapped records last, and hold the
+     same multiset of records as phase 4's pe.sam, each record's fields
+     as the SAM line's (bam_fields_check) and its bytes those of
+     _bam.sam_to_bam on the line (so the two kernels' SAM agree over
+     8192 pairs); the merge again on the run's buckets must give the
+     same BAM. Prints the time split: alignment, bucket writes, merge.
   7. two ranks on the one card: `mem` of phase 3's reads in one process
      (batches of 1024 reads: -t 4 -K 38656 cuts the FASTQ every 1024 x
      151 bp; the native route, --ext-mode waves), then as two processes of `python -m bwa_flow_tpu_torch mem
@@ -91,13 +92,14 @@ Phases:
      the sharded seed + coupled-extension step with its psum checks,
      then the production pipeline with two shards, SAM equal to one
      device); entry()'s step on the card against the CPU; then phase
-     3's single-end run over the shards through the CLI's _mem on the
-     pure-Python route: every shard must have run waves on the int32
-     kernel, and the records
-     must equal phase 3's full.sam byte for byte.
+     3's single-end run over the shards through the CLI's _mem with
+     --ext-mode waves: every shard must have run waves on the int32
+     kernel, and the records must equal phase 3's full.sam byte for
+     byte.
   9. the paths no earlier phase runs, and the checks that make a run
-     fail, on the pure-Python route (its injections target its wave
-     buffer; phase 10 injects on the native route): the first 2048 of
+     fail, with --ext-mode waves (the injections and the stalls on a few
+     reads with no host drain and no harvester, so that device waves
+     carry every task): the first 2048 of
      phase 3's reads on the wide path (index.io.FORCE_WIDE: the int64
      seed machine and SA) and with no dense SA (BWA_TPU_DENSE_SA_MAX=0:
      the fused LF walk, which must have launched the sa_walk kernel once
@@ -120,9 +122,8 @@ Phases:
      launch, no device task: the harvesters run every task) and
      --ext-mode waves (device waves: int32 for the reads, int16 for the
      pairs with BWA_TPU_EXTEND16=1), each SAM equal to phase 3's
-     full.sam or phase 4's pe.sam byte for byte apart from @PG (so
-     native markdup equals regex markdup over 8192 reads and 8192 pairs;
-     both runs' duplicate counts are printed); phase
+     full.sam or phase 4's pe.sam byte for byte apart from @PG, with
+     phase 3's or 4's duplicate count (both printed); phase
      3's reads over two shards of the one card in waves mode
      (AlignPipeline(devices=[cuda:0, cuda:0]) through _mem), equal to
      full.sam; and a wave row corrupted before the native driver's
@@ -138,16 +139,19 @@ Phases:
      the run launched, the launch nearest the class's mean width is
      run again against the plain version on the same inputs (tolerance
      0), timed, with its bound.
- 11. the host libraries against their Python versions on the card's
-     host, each side timed: (a) _native.sais against suffix_array on
+ 11. the host libraries against their Python versions, or known
+     answers, on the card's host, each timed: (a) _native.sais against
+     suffix_array on
      both strands of the genome's first 1 Mbp and on tests/test_index.py's
      adversarial texts; (b) ksw_extend2 and ksw_global2 (with CIGAR)
      against ksw_extend2_py and ksw_global2_py on 2000 tasks of
-     make_ext_tasks; (c) NativeMarkDupStage against the regex
-     MarkDupStage on pe.sam with its first 512 pairs repeated under new
-     names (equal SAM, both duplicate counts >= 512); (d) bucket writes
-     and the merge of pe.sam through the _bam encoder and the Python
-     one (equal inflated BAMs), and a malformed SAM line given to
+     make_ext_tasks; (c) NativeMarkDupStage on pe.sam, and again with
+     its first 512 pairs repeated under new names: the first run's
+     marks unchanged, every repeated pair with a mapped mate marked
+     duplicate on every line and no other, the count up by as many, at
+     least 512 duplicates; (d) bucket writes and the merge of pe.sam
+     through the _bam encoder (records as phase 6 checks them, keys
+     non-decreasing), and a malformed SAM line given to
      _bam.sam_to_bam in a subprocess, which must exit 1 with ValueError,
      not die by a signal; (e) phase 3's index loaded with RESAMPLE_MIN =
      0: sa_intv 32 -> 4, the table every 4th entry of the full SA, then
@@ -223,8 +227,9 @@ Phases:
  13. one JSON line describing the kernels (launches on the native
      route's waves runs, with ms, plain_ms and bound_ms at that path's
      shapes: the launch-weighted mean over its classes, each class
-     under "native_classes"; python_path_* at the pure-Python route's
-     mean wave; *_b4096 at B=4096; launches on each path) and, under
+     under "native_classes"; path_* at the mean wave of phase 3's
+     (int32) or phase 4's (int16) run; *_b4096 at B=4096; launches on
+     each path) and, under
      "host_libraries", the six host libraries with their build seconds
      and phase 11's times; the device line; and as the last line {"ok":
      true, "device": {...}}. The seed kernels' launches are those of the
@@ -991,18 +996,23 @@ def build_everything(_build) -> dict:
 # ----------------------------------------------------------- main path
 
 @contextlib.contextmanager
-def python_route():
-    """While the block runs, in-process `mem` runs take the pure-Python
-    route (cli._mem(..., native=False))."""
-    import functools
+def waves_carry_every_task():
+    """While the block runs, a batch aligner in --ext-mode waves drains
+    nothing on the host and starts no harvester, so that device waves
+    carry every task that fits, also on a few reads."""
+    from bwa_flow_tpu_torch.pipeline.batch import BatchAligner
 
-    from bwa_flow_tpu_torch import cli
-    real = cli._mem
-    cli._mem = functools.partial(real, native=False)
+    init = BatchAligner.__init__
+
+    def no_drain(self, *a, **k):
+        init(self, *a, **k)
+        if self.ext_mode == "waves":
+            self.drain_max, self.harvest_workers = 0, 0
+    BatchAligner.__init__ = no_drain
     try:
         yield
     finally:
-        cli._mem = real
+        BatchAligner.__init__ = init
 
 
 @contextlib.contextmanager
@@ -1059,8 +1069,8 @@ def _body(p: Path) -> list[str]:
 
 
 def phase_main_path(work: Path, device: str) -> dict:
-    """index + single-end mem through the port's CLI on the pure-Python
-    route (int32 kernel); returns the run's numbers."""
+    """index + single-end mem through the port's CLI in --ext-mode waves
+    (int32 kernel); returns the run's numbers."""
     import torch
 
     from bwa_flow_tpu_torch import cli
@@ -1089,13 +1099,14 @@ def phase_main_path(work: Path, device: str) -> dict:
     with timed_launches() as log, markdup_stages() as mds, \
             plain_seed_calls() as plain:
         assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
-                         "--device", device, "-o", str(work / "full.sam"),
-                         str(work / "ref.fa"), str(work / "reads.fq")]) == 0
+                         "--device", device, "--ext-mode", "waves", "-o",
+                         str(work / "full.sam"), str(work / "ref.fa"),
+                         str(work / "reads.fq")]) == 0
     dt = time.perf_counter() - t0
     seed_launches = dict(smem_cuda.n_launches)
     seed_launch_check("main", seed_launches, plain)
     path = launch_times(log, "main")
-    mdup = markdup_summary("main", mds, "MarkDupStage")
+    mdup = markdup_summary("main", mds, "NativeMarkDupStage")
     launches = extend_cuda.n_launches
     launches16 = extend_cuda.n_launches16
     st = dict(cli.last_run_stats)
@@ -1106,8 +1117,8 @@ def phase_main_path(work: Path, device: str) -> dict:
           f"program {seed_per_batch:.3f} s/batch over "
           f"{st['seed_batches']} batches; waves {st['waves']}, device "
           f"tasks {st['ext_tasks_device']}, host tasks "
-          f"{st['ext_tasks_host']}, band retries {st['band_retries']}; "
-          f"ksw_extend2 launches {launches}; peak device memory "
+          f"{st['ext_tasks_host']}; ksw_extend2 launches {launches}; "
+          f"peak device memory "
           f"{peak / 2**20:.1f} MiB")
     print(f"[main] spans (host wall clock, s): {tracer.as_json()}")
     print(f"[main] {enqueue_summary(st)}")
@@ -1158,9 +1169,8 @@ def phase_main_path(work: Path, device: str) -> dict:
 
 
 def phase_pe_path(work: Path, device: str) -> dict:
-    """Paired-end mem through the port's CLI on the pure-Python route
-    with BWA_TPU_EXTEND16=1 (the int16 kernel); returns the run's
-    numbers."""
+    """Paired-end mem through the port's CLI in --ext-mode waves with
+    BWA_TPU_EXTEND16=1 (the int16 kernel); returns the run's numbers."""
     import torch
 
     from bwa_flow_tpu_torch import cli
@@ -1181,14 +1191,14 @@ def phase_pe_path(work: Path, device: str) -> dict:
         with timed_launches() as log, markdup_stages() as mds, \
                 plain_seed_calls() as plain:
             assert cli.main(["mem", "-t", "8", "--batch-reads", str(BATCH),
-                             "--device", device, "-o", str(work / "pe.sam"),
-                             ref, str(work / "r1.fq"),
-                             str(work / "r2.fq")]) == 0
+                             "--device", device, "--ext-mode", "waves",
+                             "-o", str(work / "pe.sam"), ref,
+                             str(work / "r1.fq"), str(work / "r2.fq")]) == 0
         dt = time.perf_counter() - t0
         seed_launches = dict(smem_cuda.n_launches)
         seed_launch_check("pe", seed_launches, plain)
         path = launch_times(log, "pe")
-        mdup = markdup_summary("pe", mds, "MarkDupStage")
+        mdup = markdup_summary("pe", mds, "NativeMarkDupStage")
         launches = extend_cuda.n_launches
         launches16 = extend_cuda.n_launches16
         st = dict(cli.last_run_stats)
@@ -1199,8 +1209,8 @@ def phase_pe_path(work: Path, device: str) -> dict:
               f"{st['seed_s'] / max(1, st['seed_batches']):.3f} s/batch "
               f"over {st['seed_batches']} batches; waves {st['waves']}, "
               f"device tasks {st['ext_tasks_device']}, host tasks "
-              f"{st['ext_tasks_host']}, band retries {st['band_retries']};"
-              f" ksw_extend2_i16 launches {launches16}, ksw_extend2 "
+              f"{st['ext_tasks_host']}; ksw_extend2_i16 launches "
+              f"{launches16}, ksw_extend2 "
               f"launches {launches}; peak device memory "
               f"{peak / 2**20:.1f} MiB")
         print(f"[pe] spans (host wall clock, s): {tracer.as_json()}")
@@ -1258,7 +1268,6 @@ def phase_sort_path(work: Path, device: str) -> dict:
     waves (--ext-mode waves), int32 kernel; checks the BAM and returns
     the run's numbers."""
     import gzip
-    from collections import Counter
 
     from bwa_flow_tpu_torch import cli
     from bwa_flow_tpu_torch.index.io import load_index
@@ -1310,36 +1319,60 @@ def phase_sort_path(work: Path, device: str) -> dict:
     n_unmapped = tids.count(-1)
     if n_unmapped and -1 in tids[:len(tids) - n_unmapped]:
         raise SystemExit("pe.bam: an unmapped record before a mapped one")
-    names = {a.name: i for i, a in enumerate(anns)}
-    want = Counter(bam.sam_line_to_bam("\t".join(f), names)
-                   for f in _records(work / "pe.sam"))
-    if Counter(r["raw"] for r in recs) != want:
-        raise SystemExit("pe.bam's records differ from phase 4's pe.sam "
-                         "(int16 kernel) encoded as BAM")
+    bam_fields_check("pe.bam", recs, _records(work / "pe.sam"), anns)
     print(f"[sort] pe.bam: {len(recs)} records ({n_unmapped} unmapped, "
           f"last), keys non-decreasing, refs == index, records == phase "
           f"4's pe.sam as BAM (int32 kernel == int16 kernel over "
           f"{N_PAIRS} pairs); header {text.count(chr(10))} lines")
 
-    # the merge again, alone, on the run's buckets: _bam and Python
+    # the merge again, alone, on the run's buckets
     paths = sorted(str(p) for p in (work / "sort_tmp").glob("*.bamr"))
-    payload = gzip.decompress(data)
-    remerge = {}
-    for native in (True, False):
-        dst = work / f"pe_remerge_{int(native)}.bam"
-        t0 = time.perf_counter()
-        sort.merge_sorted_bam(paths, str(dst), anns, text, native=native)
-        remerge[native] = time.perf_counter() - t0
-        if gzip.decompress(dst.read_bytes()) != payload:
-            raise SystemExit(f"the merge again (native={native}) differs "
-                             "from pe.bam after inflation")
+    dst = work / "pe_remerge.bam"
+    t0 = time.perf_counter()
+    sort.merge_sorted_bam(paths, str(dst), anns, text)
+    remerge = time.perf_counter() - t0
+    if gzip.decompress(dst.read_bytes()) != gzip.decompress(data):
+        raise SystemExit("the merge again differs from pe.bam after "
+                         "inflation")
     print(f"[sort] the merge again on the run's {len(paths)} buckets: "
-          f"_bam {remerge[True]:.3f} s, Python {remerge[False]:.3f} s "
-          f"(in the run: {merge['s']:.3f} s); both == pe.bam inflated")
+          f"{remerge:.3f} s (in the run: {merge['s']:.3f} s); == pe.bam "
+          f"inflated")
     return dict(launches=launches, path=path["ksw_extend2"],
                 write_s=writes["s"], merge_s=merge["s"],
-                remerge_native_s=remerge[True],
-                remerge_python_s=remerge[False])
+                remerge_s=remerge)
+
+
+def bam_fields_check(tag: str, recs: list, lines: list, anns) -> None:
+    """Raise unless the decoded BAM records `recs` hold, as a multiset,
+    the SAM records `lines` (split lines): each record's QNAME, FLAG,
+    reference and mate ids, 0-based positions, MAPQ, TLEN and sequence
+    length as the SAM text gives them, and its bytes those of
+    _bam.sam_to_bam on the line."""
+    from collections import Counter
+
+    from bwa_flow_tpu_torch import _build
+    from bwa_flow_tpu_torch.io import bam
+
+    tid = {a.name: i for i, a in enumerate(anns)}
+
+    def fields(f):
+        r = tid.get(f[2], -1)
+        m = r if f[6] == "=" else tid.get(f[6], -1)
+        return (f[0], int(f[1]), r, int(f[3]) - 1, int(f[4]), m,
+                int(f[7]) - 1, int(f[8]), 0 if f[9] == "*" else len(f[9]))
+    got = Counter((r["qname"], r["flag"], r["tid"], r["pos"], r["mapq"],
+                   r["mtid"], r["mpos"], r["tlen"], r["l_seq"])
+                  for r in recs)
+    if got != Counter(fields(f) for f in lines):
+        raise SystemExit(f"{tag}: the records' fields differ from the "
+                         "SAM's")
+    names = b"".join(a.name.encode() + b"\x00" for a in anns)
+    raw = _build.host_module("_bam").sam_to_bam(
+        "".join("\t".join(f) + "\n" for f in lines), names)
+    _, _, enc = bam.decode_bam_records(bam.bam_header_bytes(anns) + raw)
+    if Counter(r["raw"] for r in recs) != Counter(r["raw"] for r in enc):
+        raise SystemExit(f"{tag}: the records differ from the SAM's lines "
+                         "encoded by _bam.sam_to_bam")
 
 
 def _free_port() -> int:
@@ -1546,7 +1579,7 @@ def phase_local_devices(work: Path, device: str, n_shards: int) -> dict:
     # phase 3's single-end run over the shards, the CLI's own emit
     ref, fq = str(work / "ref.fa"), str(work / "reads.fq")
     argv = ["-t", "8", "--batch-reads", str(BATCH), "--device", device,
-            "-o", str(work / "ld.sam"), ref, fq]
+            "--ext-mode", "waves", "-o", str(work / "ld.sam"), ref, fq]
     args = cli._mem_parser().parse_args(argv)
     os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
     extend_cuda.n_launches = extend_cuda.n_launches16 = 0
@@ -1554,15 +1587,14 @@ def phase_local_devices(work: Path, device: str, n_shards: int) -> dict:
     tracer.counts.clear()
     t0 = time.perf_counter()
     assert cli._mem(args, argv, cli.build_opt(args), 0, 1,
-                    devices=devices, native=False) == 0
+                    devices=devices) == 0
     dt = time.perf_counter() - t0
     launches, launches16 = extend_cuda.n_launches, extend_cuda.n_launches16
     st = dict(cli.last_run_stats)
     print(f"[ld] mem {N_READS} reads over {n_shards} shards: {dt:.2f} s, "
           f"{N_READS / dt:.1f} reads/s (index load included); waves "
           f"{st['waves']}, device tasks {st['ext_tasks_device']}, host "
-          f"tasks {st['ext_tasks_host']}, band retries "
-          f"{st['band_retries']}; ksw_extend2 launches {launches}, "
+          f"tasks {st['ext_tasks_host']}; ksw_extend2 launches {launches}, "
           f"ksw_extend2_i16 {launches16}")
     for i, sh in enumerate(st["shards"]):
         print(f"[ld] shard {i} on {sh['device']}: seed_s "
@@ -1687,7 +1719,8 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
 
     ref = str(work / "ref.fa")
     fq = str(_head_fastq(work / "reads.fq", work / "p9_reads.fq", P9_READS))
-    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device,
+            "--ext-mode", "waves"]
     os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
     runs: dict = {}
     dtype = (smem_torch, "collect_intv_device", lambda a: a[0].L2.dtype)
@@ -1780,31 +1813,33 @@ def phase_bypassed_paths(work: Path, device: str) -> dict:
     return runs
 
 
-# a `mem` run on the pure-Python route whose second batch's first wave
-# fetch finds the card held by a spin kernel of argv[1] cycles; prints
-# when it was queued
+# a `mem` run in --ext-mode waves (no host drain, no harvester) whose
+# second batch's first wave fetch, in the extension worker, finds the
+# card held by a spin kernel of argv[1] cycles; prints when it was queued
 _STALL_SCRIPT = """\
-import functools, sys, time, torch
+import sys, time, torch
 from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.pipeline import batch
-cli._mem = functools.partial(cli._mem, native=False)
-fetch, ext = batch.BatchAligner.fetch, batch.BatchAligner.extend_waves
+B = batch.BatchAligner
+init, fetch, start = B.__init__, B.fetch, B.extend_async
+def waves_only(self, *a, **k):
+    init(self, *a, **k)
+    self.drain_max, self.harvest_workers = 0, 0
 armed = []
-def stalled_fetch(self, t):
-    if armed and t.dim() == 2 and t.shape[0] == 12:
+def stalled_fetch(self, t, *a):
+    if armed and torch.is_tensor(t) and t.dim() == 2 and t.shape[0] == 12:
         armed.clear()
         torch.cuda._sleep(int(sys.argv[1]))
         print(f"[stall] queued at {time.time():.3f}", file=sys.stderr,
               flush=True)
-    return fetch(self, t)
+    return fetch(self, t, *a)
 calls = []
 def arm(self, *a, **k):
     calls.append(1)
     if len(calls) == 2:
         armed.append(1)
-    return ext(self, *a, **k)
-batch.BatchAligner.fetch = stalled_fetch
-batch.BatchAligner.extend_waves = arm
+    return start(self, *a, **k)
+B.__init__, B.fetch, B.extend_async = waves_only, stalled_fetch, arm
 cli.entry_main(sys.argv[2:])
 """
 
@@ -1882,13 +1917,14 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     import torch
 
     from bwa_flow_tpu_torch.ops import extend_cuda
-    from bwa_flow_tpu_torch.ops.chain2aln_torch import DescTaskBuffer
+    from bwa_flow_tpu_torch.pipeline import batch
     from bwa_flow_tpu_torch.pipeline.batch import (BatchAligner,
                                                    DeviceResultError)
     from bwa_flow_tpu_torch.pipeline.dataflow import AlignPipeline
 
     ref, fq = str(work / "ref.fa"), str(work / "reads.fq")
-    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device]
+    base = ["-t", "8", "--batch-reads", str(BATCH), "--device", device,
+            "--ext-mode", "waves"]
     os.environ.pop("BWA_TPU_EXTEND16", None)   # the int32 kernel's path
     runs: dict = {}
     with timed_calls(AlignPipeline, "_validate_sample") as val:
@@ -1986,8 +2022,9 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
                     hit.update(read=target, lane=j, delta=delta)
                     break
         return out
-    with _recording(DescTaskBuffer, "run_async",
-                    lambda a: a[0].desc[0, :max(a[0].n, 1)].copy()) as rows:
+    # each wave launch's read rows (its descriptors' row 0)
+    with _recording(batch, "seed_extend_desc_batch",
+                    lambda a: a[5][0].cpu().numpy()) as rows:
         extend_cuda.extend_core_cuda = off_by_one
         try:
             err = _failing_run(base + ["--validate-every", "1", "-o",
@@ -2026,11 +2063,12 @@ def phase_validation_watchdog(work: Path, device: str, main: dict) -> dict:
     real_fetch = BatchAligner.fetch
     stall: dict = {}
 
-    def stalled_fetch(self, t):
-        if not stall and t.dim() == 2 and t.shape[0] == 12:
+    def stalled_fetch(self, t, *a):
+        if not stall and torch.is_tensor(t) and t.dim() == 2 \
+                and t.shape[0] == 12:
             torch.cuda._sleep(cycles)
             stall["t0"] = time.perf_counter()
-        return real_fetch(self, t)
+        return real_fetch(self, t, *a)
     BatchAligner.fetch = stalled_fetch
     try:
         err = _failing_run(base + ["--device-timeout", str(STALL_TIMEOUT),
@@ -2134,7 +2172,7 @@ def _native_run(tag: str, argv: list, extend16: bool = False,
                device_ms={k: v["device_ms"] for k, v in path.items()},
                markdup=mdup)
     keys = ("waves", "ext_tasks_device", "ext_tasks_host", "host_oversize_q",
-            "host_oversize_t", "host_sched", "band_retries")
+            "host_oversize_t", "host_sched")
     print(f"[{phase}] {tag}: {dt:.2f} s, {n / dt:.1f} "
           f"{'pairs' if pairs else 'reads'}/s (index load included); "
           f"{', '.join(f'{k} {st[k]}' for k in keys)}; ksw_extend2 "
@@ -2223,13 +2261,12 @@ cli.entry_main(sys.argv[2:])
 """
 
 
-def phase_native_route(work: Path, device: str, regex_md: dict) -> dict:
+def phase_native_route(work: Path, device: str, p34_md: dict) -> dict:
     """The native route at phase 3's and phase 4's full width: host and
-    waves modes, single-end and paired-end, each SAM equal to the
-    pure-Python route's (native markdup against the regex stage, whose
-    phase 3 and 4 summaries regex_md holds by SAM name); two shards of
-    the one card in waves mode; a corrupted wave row before the native
-    apply."""
+    waves modes, single-end and paired-end, each SAM equal to phase 3's
+    or 4's and each duplicate count equal to theirs (p34_md holds their
+    markdup summaries by SAM name); two shards of the one card in waves
+    mode; a corrupted wave row before the native apply."""
     import torch
 
     from bwa_flow_tpu_torch.pipeline import batch
@@ -2255,14 +2292,14 @@ def phase_native_route(work: Path, device: str, regex_md: dict) -> dict:
         if _body(out) != _body(work / want):
             raise SystemExit(f"phase 10 {tag}: the SAM differs from "
                              f"{want}")
-        nat_dups, py_dups = r["markdup"]["dup_count"], \
-            regex_md[want]["dup_count"]
-        print(f"[p10] {tag}: markdup duplicate blocks, native "
-              f"{nat_dups} ({r['markdup']['s']:.4f} s), regex {py_dups} "
-              f"({regex_md[want]['s']:.4f} s)")
-        if nat_dups != py_dups:
-            raise SystemExit(f"phase 10 {tag}: native markdup counted "
-                             f"{nat_dups} duplicates, regex {py_dups}")
+        dups, p34_dups = r["markdup"]["dup_count"], \
+            p34_md[want]["dup_count"]
+        print(f"[p10] {tag}: markdup duplicate blocks {dups} "
+              f"({r['markdup']['s']:.4f} s), {want}'s run {p34_dups} "
+              f"({p34_md[want]['s']:.4f} s)")
+        if dups != p34_dups:
+            raise SystemExit(f"phase 10 {tag}: markdup counted {dups} "
+                             f"duplicates, {want}'s run {p34_dups}")
         st = r["stats"]
         if mode == "host":
             ok = r["launches"] == r["launches16"] == 0 \
@@ -2415,10 +2452,11 @@ def _sam_reads(path: Path, dup_pairs: int):
 
 def phase_host_libraries(work: Path, genome: np.ndarray,
                          device: str) -> dict:
-    """Each host library of this slice against its Python version on the
-    card's host, both timed: (a) SA-IS, (b) ksw_extend2/ksw_global2, (c)
-    markdup, (d) the BAM encoder (bucket writes, merge) and a malformed
-    line, (e) SA re-sampling at load and the LF walk over its table."""
+    """Each host library of this slice against its Python version, or
+    known answers, on the card's host, each timed: (a) SA-IS, (b)
+    ksw_extend2/ksw_global2, (c) markdup, (d) the BAM encoder (bucket
+    writes, merge) and a malformed line, (e) SA re-sampling at load and
+    the LF walk over its table."""
     import copy
     import gzip
 
@@ -2426,6 +2464,7 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
     from bwa_flow_tpu_torch.dedup import markdup
     from bwa_flow_tpu_torch.index import build, io as idx_io
     from bwa_flow_tpu_torch.index.suffix import suffix_array
+    from bwa_flow_tpu_torch.io import bam
     from bwa_flow_tpu_torch.ops import fm_cuda, ksw, smem_torch
     from bwa_flow_tpu_torch.pipeline import sort
     from bwa_flow_tpu_torch.utils.opts import MemOpt
@@ -2483,63 +2522,77 @@ def phase_host_libraries(work: Path, genome: np.ndarray,
         print(f"[p11] (b) {name} == {name}_py on {len(g)} tasks: native "
               f"{tn:.4f} s, NumPy {tp:.3f} s")
 
-    # (c) native against regex markdup, duplicates injected
+    # (c) markdup against known answers: pe.sam, then pe.sam with its
+    # first P11_DUP_PAIRS pairs repeated under new names. A repeated pair
+    # has its original's signature, so it is a duplicate exactly when
+    # its original has one: when a mate of it is mapped
     reads = _sam_reads(work / "pe.sam", P11_DUP_PAIRS)
+    n0 = len(reads) - 2 * P11_DUP_PAIRS
     fm = idx_io.load_index(str(work / "ref.fa"))
-    outs = {}
-    for native in (True, False):
-        rs = copy.deepcopy(reads)
-        stage = markdup.make_markdup_stage(fm, ignore_unmated=True,
-                                           native=native)
+    outs = []
+    for rs in (copy.deepcopy(reads[:n0]), copy.deepcopy(reads)):
+        stage = markdup.make_markdup_stage(fm, ignore_unmated=True)
         t0 = time.perf_counter()
         for i in range(0, len(rs), BATCH):
             stage.process(rs[i:i + BATCH])
-        dt = time.perf_counter() - t0
-        outs[native] = ([r.sam for r in rs], stage.state.dup_count, dt,
-                        type(stage).__name__)
-    (n_sam, n_dup, n_s, n_cls), (p_sam, p_dup, p_s, p_cls) = \
-        outs[True], outs[False]
+        outs.append((rs, stage.state.dup_count, time.perf_counter() - t0,
+                     type(stage).__name__))
+    (plain, p_dup, _, _), (rs, n_dup, n_s, n_cls) = outs
+
+    def flags(r):
+        return [int(l.split("\t")[1]) for l in r.sam.splitlines()]
+
+    def primary_mapped(r):
+        return any(not f & 0x904 for f in flags(r))
+    copies = rs[n0:]
+    want_dup = [primary_mapped(a) or primary_mapped(b)
+                for a, b in zip(copies[0::2], copies[1::2])]
+    got_dup = [[all(f & 0x400 for f in flags(r)) for r in (a, b)]
+               for a, b in zip(copies[0::2], copies[1::2])]
+    any_dup = [[any(f & 0x400 for f in flags(r)) for r in (a, b)]
+               for a, b in zip(copies[0::2], copies[1::2])]
     print(f"[p11] (c) markdup of {len(reads)} reads ({P11_DUP_PAIRS} "
           f"pairs repeated): {n_cls} {n_dup} duplicate blocks in "
-          f"{n_s:.4f} s, {p_cls} {p_dup} in {p_s:.3f} s")
-    if n_sam != p_sam or n_dup != p_dup or n_dup < P11_DUP_PAIRS:
-        raise SystemExit("phase 11 (c): native and regex markdup differ, "
-                         f"or fewer than {P11_DUP_PAIRS} duplicates")
-    res["markdup"] = dict(reads=len(reads), dup_count=n_dup, native_s=n_s,
-                          python_s=p_s)
+          f"{n_s:.4f} s, {p_dup} without the repeats; "
+          f"{sum(want_dup)} repeats with a mapped mate")
+    if [r.sam for r in rs[:n0]] != [r.sam for r in plain] \
+            or got_dup != [[w, w] for w in want_dup] \
+            or any_dup != got_dup or n_dup != p_dup + sum(want_dup) \
+            or n_dup < P11_DUP_PAIRS:
+        raise SystemExit("phase 11 (c): the repeated pairs' marks or the "
+                         "counts are not the known answer, or fewer than "
+                         f"{P11_DUP_PAIRS} duplicates")
+    res["markdup"] = dict(reads=len(reads), dup_count=n_dup, native_s=n_s)
 
-    # (d) bucket writes and merge through both encoders
+    # (d) bucket writes and merge through the _bam encoder
     anns = fm.bns.anns
     hdr = "@HD\tVN:1.6\tSO:coordinate\n"
-    sams = [r.sam for r in reads[:len(reads) - 2 * P11_DUP_PAIRS]]
-    bams = {}
-    for native in (True, False):
-        tag = "native" if native else "python"
-        tmp = work / f"p11_buckets_{tag}"
-        bs = sort.BucketSort(anns, str(tmp), 512, native=native)
-        t0 = time.perf_counter()
-        for s in sams:        # one call a read, as the CLI's emit does
-            bs.write_sam_text(s)
-        t_write = time.perf_counter() - t0
-        paths = bs.close()
-        out = work / f"p11_{tag}.bam"
-        t0 = time.perf_counter()
-        sort.merge_sorted_bam(paths, str(out), anns, hdr, native=native)
-        t_merge = time.perf_counter() - t0
-        bams[native] = out.read_bytes()
-        res[f"bam_{tag}"] = dict(write_s=t_write, merge_s=t_merge)
-        shutil.rmtree(tmp)
-    same_bytes = bams[True] == bams[False]
+    sams = [r.sam for r in reads[:n0]]
+    tmp = work / "p11_buckets"
+    bs = sort.BucketSort(anns, str(tmp), 512)
+    t0 = time.perf_counter()
+    for s in sams:        # one call a read, as the CLI's emit does
+        bs.write_sam_text(s)
+    t_write = time.perf_counter() - t0
+    paths = bs.close()
+    out = work / "p11.bam"
+    t0 = time.perf_counter()
+    sort.merge_sorted_bam(paths, str(out), anns, hdr)
+    t_merge = time.perf_counter() - t0
+    shutil.rmtree(tmp)
+    res["bam_native"] = dict(write_s=t_write, merge_s=t_merge)
+    text, _, recs = bam.decode_bam_records(gzip.decompress(
+        out.read_bytes()))
+    keys = [sort.sort_key_from_raw(r["raw"]) for r in recs]
     print(f"[p11] (d) {len(sams)} reads of pe.sam into 512 buckets and "
-          f"merged: _bam writes {res['bam_native']['write_s']:.3f} s, merge "
-          f"{res['bam_native']['merge_s']:.3f} s; Python writes "
-          f"{res['bam_python']['write_s']:.3f} s, merge "
-          f"{res['bam_python']['merge_s']:.3f} s; compressed bytes "
-          f"{'equal' if same_bytes else 'differ'} (zlib "
-          f"{_build.host_module('_bam').zlib_version()} linked)")
-    if gzip.decompress(bams[True]) != gzip.decompress(bams[False]):
-        raise SystemExit("phase 11 (d): the _bam BAM differs from the "
-                         "Python encoder's after inflation")
+          f"merged: _bam writes {t_write:.3f} s, merge {t_merge:.3f} s "
+          f"(zlib {_build.host_module('_bam').zlib_version()} linked)")
+    if text != hdr or any(a > b for a, b in zip(keys, keys[1:])):
+        raise SystemExit("phase 11 (d): the merged BAM's header differs, "
+                         "or its sort keys decrease")
+    bam_fields_check("phase 11 (d)", recs,
+                     [l.split("\t") for s in sams for l in s.splitlines()],
+                     anns)
     script = work / "malformed_sam.py"
     script.write_text(_MALFORMED_SCRIPT)
     r = subprocess.run([sys.executable, str(script)], capture_output=True,
@@ -3804,9 +3857,8 @@ def main() -> int:
         return out
     kres = timed_phase("2 kernels", phase_kernels, genome, cuda)
     timed_phase("2 edge mix", phase_edge_mix, cuda, kres)
-    with python_route():
-        mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
-        pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
+    mres = timed_phase("3 single-end", phase_main_path, WORK, "cuda")
+    pres = timed_phase("4 paired-end", phase_pe_path, WORK, "cuda")
     seedres = timed_phase("12 seed kernels", phase_seed_kernels, WORK,
                           genome, "cuda")
     timed_phase("5 mean waves", phase_wave_shape, genome, cuda, kres,
@@ -3818,7 +3870,7 @@ def main() -> int:
                        "cuda")
     lres = timed_phase("8 local devices", phase_local_devices, WORK, "cuda",
                        LD_SHARDS)
-    with python_route():
+    with waves_carry_every_task():
         yres = timed_phase("9 bypassed paths", phase_bypassed_paths, WORK,
                            "cuda")
         vres = timed_phase("9 validation and watchdog",
@@ -3859,9 +3911,9 @@ def main() -> int:
     native = {"ksw_extend2": nres["se_waves"], "ksw_extend2_i16":
               nres["pe_waves"]}
 
-    # launches, ms, plain_ms and bound_ms of the native route's waves runs
-    # (the CLI's route), at its shapes; python_path_* at the mean wave of
-    # the pure-Python route's run; *_b4096 at the widest wave
+    # launches, ms, plain_ms and bound_ms of phase 10's waves runs, at
+    # their shapes; path_* at the mean wave of phase 3's or 4's run;
+    # *_b4096 at the widest wave
     kernels = []
     for name, source, body, res in (
             ("ksw_extend2", "ksw_extend.cu", "_make_kernel", mres),
@@ -3880,10 +3932,10 @@ def main() -> int:
             "ms": nat["ms"], "plain_ms": nat["plain_ms"],
             "bound_ms": nat["bound_ms"], "bound_by": nat["bound_by"],
             "library_ms": None, "native_classes": nat["classes"],
-            "python_path_ms": k["path_ms"],
-            "python_path_plain_ms": k["path_plain_ms"],
-            "python_path_bound_ms": k["path_bound_ms"],
-            "python_path_B": k["path_B"],
+            "path_ms": k["path_ms"],
+            "path_plain_ms": k["path_plain_ms"],
+            "path_bound_ms": k["path_bound_ms"],
+            "path_B": k["path_B"],
             "launches_by_path": launches_by_path[name],
             "path_device_ms": res["path"]["device_ms"],
             "native_path_device_ms": native[name]["device_ms"].get(name),
@@ -3972,12 +4024,11 @@ def main() -> int:
     p11 = {"_native": {k: hres[k] for k in ("sais", "ksw_extend2",
                                             "ksw_global2", "resample")},
            "_markdup": {"markdup": hres["markdup"],
-                        "mem_se_native": nres["se_host"]["markdup"],
-                        "mem_se_regex": mres["markdup"],
-                        "mem_pe_native": nres["pe_host"]["markdup"],
-                        "mem_pe_regex": pres["markdup"]},
-           "_bam": {"native": hres["bam_native"],
-                    "python": hres["bam_python"]}}
+                        "mem_se_host": nres["se_host"]["markdup"],
+                        "mem_se_waves": mres["markdup"],
+                        "mem_pe_host": nres["pe_host"]["markdup"],
+                        "mem_pe_waves": pres["markdup"]},
+           "_bam": {"native": hres["bam_native"]}}
     host_libs = [{"name": n, "source":
                   f"bwa_flow_tpu_torch/csrc/host/{n}.cpp",
                   "replaces": f"native/{n}.cpp", "build_s": build_s[n],

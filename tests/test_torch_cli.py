@@ -5,12 +5,10 @@ byte-equal, single-end and paired-end mem SAM equal apart from @PG
 --no-device equal too, and so are runs sharded over CPU devices with
 --local-devices, and validated runs under the hang watchdog; `--sort`
 BAMs equal after decompression. `mem` takes the native route, in
---ext-mode host by default (BWA_TPU_EXT too) and in --ext-mode waves;
-tests that hold the pure-Python route call cli._mem with native=False.
+--ext-mode host by default (BWA_TPU_EXT too) and in --ext-mode waves.
 Runs that cannot be right (a hung device, a corrupted result) exit
 non-zero."""
 
-import functools
 import gzip
 import json
 import os
@@ -94,12 +92,6 @@ def workdir(tmp_path_factory):
     assert r.returncode == 0, r.stderr[-2000:]
     assert cli.main(["index", str(d / "ref.fa")]) == 0
     return d
-
-
-def _python_route(monkeypatch):
-    """`mem` on the pure-Python route for the rest of the test."""
-    monkeypatch.setattr(cli, "_mem", functools.partial(cli._mem,
-                                                       native=False))
 
 
 def _waves_carry_every_task(monkeypatch):
@@ -301,17 +293,6 @@ def test_ext_mode_host_from_the_environment_runs(workdir, inputs,
     assert "native route, host mode" in err
 
 
-def test_python_route_from_mem_in_process(workdir, monkeypatch, capsys):
-    """cli._mem(..., native=False): the pure-Python route, whose waves run
-    whatever the extension mode; the same SAM."""
-    monkeypatch.setenv("BWA_TPU_EXT", "host")
-    _python_route(monkeypatch)
-    body, err = _mem_run(workdir, "se", [], "se_python.sam", capsys)
-    assert body == _body(workdir / "jax" / "se.sam")
-    assert cli.last_run_stats["ext_tasks_device"] > 0
-    assert "python route" in err
-
-
 def test_help_lists_the_options(capsys):
     with pytest.raises(SystemExit) as e:
         cli.main(["mem", "--help"])
@@ -322,15 +303,13 @@ def test_help_lists_the_options(capsys):
     assert "{host,waves}" in text and "native _wave driver" in text
 
 
-# a `mem` run on the pure-Python route whose device stops finishing from
-# its second batch's waves on; it records its pool's worker pids in
-# argv[1]
+# a `mem` run whose device stops finishing as its second batch's
+# extension starts; it records its pool's worker pids in argv[1]
 _STALL_SCRIPT = """\
-import functools, json, sys
+import json, sys
 from bwa_flow_tpu_torch import cli
 from bwa_flow_tpu_torch.pipeline import batch, dataflow
-cli._mem = functools.partial(cli._mem, native=False)
-init, ext = dataflow.AlignPipeline.__init__, batch.BatchAligner.extend_waves
+init, ext = dataflow.AlignPipeline.__init__, batch.BatchAligner.extend_async
 def pool_pids(self, *a, **k):
     init(self, *a, **k)
     with open(sys.argv[1], "w") as f:
@@ -342,15 +321,15 @@ def stall(self, *a, **k):
         self._ready = lambda device: (lambda: False)
     return ext(self, *a, **k)
 dataflow.AlignPipeline.__init__ = pool_pids
-batch.BatchAligner.extend_waves = stall
+batch.BatchAligner.extend_async = stall
 cli.entry_main(sys.argv[2:])
 """
 
 
 def test_stalled_run_exits_nonzero_and_leaves_no_pool_child(workdir):
-    """A run whose device hangs in its second batch, while the first
-    batch's tail runs in a pool of two workers: exit non-zero with
-    [E::mem] on stderr, no pool worker left behind."""
+    """A run whose device hangs in its second batch, with a pool of two
+    workers forked: exit non-zero with [E::mem] on stderr, no pool
+    worker left behind."""
     script = workdir / "stall_run.py"
     script.write_text(_STALL_SCRIPT)
     pids_f = workdir / "stall_pids.json"
@@ -444,14 +423,14 @@ def test_local_devices_se_equals_one_device_and_jax(workdir, n,
                                                     monkeypatch):
     """--local-devices 2 shards every batch over two CPU shards; 0 and 1
     are the one-device path. The SAM equals the one-device --device cpu
-    run's and the JAX package's. On the pure-Python route, whose waves
-    run on every shard at this size (test_local_devices_pe_equals_jax
-    runs the native route)."""
-    _python_route(monkeypatch)
+    run's and the JAX package's. In --ext-mode waves with no host drain
+    and no harvester, so that waves run on every shard at this size
+    (test_local_devices_pe_equals_jax runs the default host mode)."""
+    _waves_carry_every_task(monkeypatch)
     out = workdir / f"se_ld{n}.sam"
     assert cli.main(["mem", "--device", "cpu", "--local-devices", str(n),
-                     "-o", str(out), str(workdir / "ref.fa"),
-                     str(workdir / "se.fq")]) == 0
+                     "--ext-mode", "waves", "-o", str(out),
+                     str(workdir / "ref.fa"), str(workdir / "se.fq")]) == 0
     assert _body(out) == _body(workdir / "jax" / "se.sam")
     shards = cli.last_run_stats["shards"]
     assert len(shards) == max(n, 1)

@@ -233,20 +233,11 @@ def test_collectives_without_a_group():
 WORKER = textwrap.dedent("""
     import json, sys
     import numpy as np
-    from bwa_flow_tpu_torch.dedup.markdup import MarkDupState
     from bwa_flow_tpu_torch.parallel import distributed as dist
 
     pid, n, coord = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
     assert dist.init_distributed(coord, n, pid) == (pid, n)
     res = {"world": dist.tdist.get_world_size()}
-
-    class A:
-        def __init__(s, name, l): s.name, s.len = name, l
-    st = MarkDupState([A("c1", 1000)])
-    st.sigs.add((pid, 0, 1234 + pid))          # distinct per rank
-    st.sigs.add((9, 9, 9))                     # shared by both
-    dist.merge_markdup_signatures(st)
-    res["sigs"] = sorted(st.sigs)
 
     res["stats"] = {k: float(v) for k, v in dist.reduce_stats(
         {"reads": 10 * (pid + 1), "waves": 1}).items()}
@@ -282,13 +273,8 @@ def collectives(tmp_path_factory):
     return [json.loads(o.strip().splitlines()[-1]) for o in outs]
 
 
-def test_gloo_merge_markdup_signatures(collectives):
-    want = sorted([[0, 0, 1234], [1, 0, 1235], [9, 9, 9]])
-    assert all(r["world"] == 2 for r in collectives)
-    assert all(r["sigs"] == want for r in collectives)
-
-
 def test_gloo_reduce_stats(collectives):
+    assert all(r["world"] == 2 for r in collectives)
     assert all(r["stats"] == {"reads": 30.0, "waves": 2.0}
                for r in collectives)
 

@@ -6,13 +6,12 @@ numpy from a local seed and handed to both packages; every comparison
 is exact: suffix arrays, index artifacts, alignment tuples and CIGARs,
 re-sampled SA tables and the LF walk over them, duplicate marks and
 signatures, BAM records, bucket files and merged BAMs, and the CLI's
-SAM and BAM on the native route against native=False. Malformed input
+SAM and BAM against the JAX package's CLI. Malformed input
 must raise ValueError (in a subprocess, so an interpreter abort fails
 the test and not the suite), and a failed build must raise with no
 Python version run in its place."""
 
 import copy
-import functools
 import gzip
 import json
 import os
@@ -27,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from bwa_flow_tpu import cli as jcli
 from bwa_flow_tpu.dedup import markdup as jmd
 from bwa_flow_tpu.index.build import build_index as jax_build_index
 from bwa_flow_tpu.index.build import encode_reference as jax_encode
@@ -506,24 +506,18 @@ def _port_reads(jreads):
                          ids=["ignore_unmated", "strict"])
 def test_native_markdup_equals_jax_markdup(md_fx, inputs, ignore_unmated):
     """NativeMarkDupStage against the JAX package's MarkDupStage (regex),
-    in batches: the same SAM, dup_count, unmated_count and signatures;
-    the port's regex stage (native=False) gives the same too."""
+    in batches: the same SAM, dup_count, unmated_count and signatures."""
     jreads = copy.deepcopy(md_fx[inputs])
     nreads = _port_reads(md_fx[inputs])
-    preads = _port_reads(md_fx[inputs])
     jst = jmd.MarkDupStage(md_fx["jfm"], ignore_unmated)
     nst = md.make_markdup_stage(md_fx["fm"], ignore_unmated)
-    pst = md.make_markdup_stage(md_fx["fm"], ignore_unmated, native=False)
     assert isinstance(nst, md.NativeMarkDupStage)
-    assert type(pst) is md.MarkDupStage
     cut = [0, 10, 11, 30, len(jreads)] if inputs == "se" else \
         [0, 10, 30, len(jreads)]
     for a, b in zip(cut, cut[1:]):
         jst.process(jreads[a:b])
         nst.process(nreads[a:b])
-        pst.process(preads[a:b])
     assert [r.sam for r in nreads] == [r.sam for r in jreads]
-    assert [r.sam for r in preads] == [r.sam for r in jreads]
     assert nst.state.dup_count == jst.state.dup_count >= 6
     assert nst.state.unmated_count == jst.state.unmated_count
     assert sorted(nst.state.signature_items()) == \
@@ -649,12 +643,12 @@ def test_bgzf_native_blocks_equal_jax(size):
         assert got == want
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
-def test_bam_writer_equals_jax(tmp_path, native):
+def test_bam_writer_equals_jax(tmp_path):
+    """BamWriter on _bam against the JAX package's BamWriter: the same
+    payload in the same blocks; the same bytes where the library links
+    the zlib Python runs."""
     sam = "@HD\tVN:1.6\n" + "\n".join(_lines() * 40) + "\n"
-    w = bam.BamWriter(str(tmp_path / "mine.bam"), ANNS, "@HD\tVN:1.6\n",
-                      native=native)
-    assert (w._bam is not None) == native
+    w = bam.BamWriter(str(tmp_path / "mine.bam"), ANNS, "@HD\tVN:1.6\n")
     w.write_sam_text(sam)
     w.close()
     jw = jbam.BamWriter(str(tmp_path / "theirs.bam"), ANNS, "@HD\tVN:1.6\n")
@@ -663,19 +657,8 @@ def test_bam_writer_equals_jax(tmp_path, native):
     mine = (tmp_path / "mine.bam").read_bytes()
     theirs = (tmp_path / "theirs.bam").read_bytes()
     assert _bgzf_blocks(mine) == _bgzf_blocks(theirs)
-    if not native or _same_zlib():
+    if _same_zlib():
         assert mine == theirs
-
-
-def test_no_native_bam_switch_takes_the_python_encoder(tmp_path,
-                                                       monkeypatch):
-    monkeypatch.setenv("BWA_TPU_NO_NATIVE_BAM", "1")
-    assert bam.native_bam() is None
-    assert bam.BamWriter(str(tmp_path / "a.bam"), ANNS)._bam is None
-    assert sort.BucketSort(ANNS, str(tmp_path / "t"), 4)._bam is None
-    monkeypatch.delenv("BWA_TPU_NO_NATIVE_BAM")
-    assert bam.native_bam() is _build.host_module("_bam")
-    assert bam.native_bam(False) is None
 
 
 def _bucket(mod, root, lines, nb, drop, **kw):
@@ -785,18 +768,6 @@ def test_malformed_input_raises_value_error(tmp_path, case):
     assert r.stdout.startswith("ValueError:"), r.stdout
 
 
-def test_malformed_lines_the_python_encoder_rejects_too():
-    """Where the JAX package's encoder raises on a line, so does _bam."""
-    lib = _build.host_module("_bam")
-    for case in ("bad_tag_type", "tag_int_range", "bad_integer",
-                 "qname_255", "flag_65536", "short_line"):
-        line = MALFORMED[case][1]
-        with pytest.raises((ValueError, struct.error, IndexError)):
-            jbam.sam_line_to_bam(line, NAMES)
-        with pytest.raises(ValueError):
-            lib.sam_to_bam(line + "\n", b"chr1\x00chr2\x00")
-
-
 # ------------------------------------------------------- failed build
 
 def _entry_points(tmp_path):
@@ -825,7 +796,7 @@ def _entry_points(tmp_path):
 def test_failed_build_raises_and_no_python_version_runs(tmp_path,
                                                         monkeypatch, entry):
     """A compiler that fails: the entry point raises with its output, and
-    the Python version it would replace never runs."""
+    no Python version runs in its place."""
     fake = tmp_path / "fail-cxx"
     fake.write_text("#!/bin/sh\necho 'fatal: this compiler fails' >&2\n"
                     "exit 1\n")
@@ -837,8 +808,7 @@ def test_failed_build_raises_and_no_python_version_runs(tmp_path,
     def ran(*a, **k):
         raise AssertionError("a Python version ran")
     for mod, name in ((ksw, "ksw_extend2_py"), (ksw, "ksw_global2_py"),
-                      (md, "MarkDupStage"), (bam, "sam_line_to_bam"),
-                      (bam, "bgzf_block"), (sort, "sam_line_to_bam")):
+                      (bam, "bgzf_block")):
         monkeypatch.setattr(mod, name, ran)
     import bwa_flow_tpu_torch.index.suffix as suffix
     monkeypatch.setattr(suffix, "suffix_array", ran)
@@ -912,62 +882,63 @@ def cli_fx(tmp_path_factory):
     return d
 
 
-def _spy(monkeypatch, owner, attr, log, tag):
-    real = getattr(owner, attr)
-
-    def wrapped(*a, **k):
-        log.append(tag)
-        return real(*a, **k)
-    monkeypatch.setattr(owner, attr, wrapped)
-
-
-def _cli_run(d, inputs, sort_out, native, monkeypatch, capsys):
-    """`mem` on the native route (the CLI's own) or native=False; returns
-    (records or SAM body, markdup line, which stages ran)."""
-    log: list = []
-    _spy(monkeypatch, md.NativeMarkDupStage, "process", log, "native_md")
-    _spy(monkeypatch, md.MarkDupStage, "process", log, "regex_md")
-    _spy(monkeypatch, bam, "sam_line_to_bam", log, "py_bam")
-    _spy(monkeypatch, sort, "sam_line_to_bam", log, "py_bam")
-    if not native:
-        monkeypatch.setattr(cli, "_mem", functools.partial(cli._mem,
-                                                           native=False))
-    fq = ["se.fq"] if inputs == "se" else ["r1.fq", "r2.fq"]
-    tag = f"{inputs}_{'native' if native else 'python'}"
-    out = d / (f"{tag}.bam" if sort_out else f"{tag}.sam")
-    extra = ["--sort", "--num-buckets", "4", "--temp-dir",
-             str(d / f"td_{tag}")] if sort_out else []
-    capsys.readouterr()
-    assert cli.main(["mem", "--device", "cpu"] + extra + ["-o", str(out),
-                     str(d / "ref.fa")] + [str(d / f) for f in fq]) == 0
-    err = capsys.readouterr().err
-    mdline = [l for l in err.splitlines() if "[M::mem] markdup:" in l]
+def _records(out: Path, sort_out: bool):
+    """A run's output without its @PG lines: the SAM body, or the sorted
+    BAM's header lines, references and raw records."""
     if sort_out:
         text, refs, recs = bam.decode_bam_records(
             gzip.decompress(out.read_bytes()))
-        body = ([l for l in text.splitlines() if not l.startswith("@PG")],
+        return ([l for l in text.splitlines() if not l.startswith("@PG")],
                 refs, [r["raw"] for r in recs])
+    return [l for l in out.read_text().splitlines()
+            if not l.startswith("@PG")]
+
+
+def _cli_run(d, inputs, sort_out, main, tag, capsys):
+    """`mem` of the CLI `main` (the port's on the CPU, or the JAX
+    package's --no-device in d/jax, its own index beside it); returns
+    (records, markdup line)."""
+    fq = ["se.fq"] if inputs == "se" else ["r1.fq", "r2.fq"]
+    out = d / f"{inputs}_{tag}.{'bam' if sort_out else 'sam'}"
+    extra = ["--sort", "--num-buckets", "4", "--temp-dir",
+             str(d / f"td_{inputs}_{tag}")] if sort_out else []
+    ref = d / "ref.fa"
+    if main is jcli.main:
+        (d / "jax").mkdir(exist_ok=True)
+        ref = d / "jax" / "ref.fa"
+        if not ref.exists():
+            ref.write_bytes((d / "ref.fa").read_bytes())
+            assert jcli.main(["index", str(ref)]) == 0
+        extra = ["--no-device"] + extra
     else:
-        body = [l for l in out.read_text().splitlines()
-                if not l.startswith("@PG")]
-    return body, mdline, set(log)
+        extra = ["--device", "cpu"] + extra
+    capsys.readouterr()
+    assert main(["mem"] + extra + ["-o", str(out), str(ref)]
+                + [str(d / f) for f in fq]) == 0
+    err = capsys.readouterr().err
+    return (_records(out, sort_out),
+            [l for l in err.splitlines() if "[M::mem] markdup:" in l])
 
 
 @pytest.mark.parametrize("sort_out", [False, True], ids=["sam", "sort"])
 @pytest.mark.parametrize("inputs", ["se", "pe"])
 def test_cli_native_route_equals_python_route(cli_fx, inputs, sort_out,
                                               monkeypatch, capsys):
-    """The CLI's route (native markdup, native BAM encoder) against
-    _mem(..., native=False) (regex markdup, Python encoder): the same
-    SAM, or the same records in the same sorted BAM, and the same
-    markdup line, with duplicates marked."""
-    with monkeypatch.context() as m:
-        nat = _cli_run(cli_fx, inputs, sort_out, True, m, capsys)
-    with monkeypatch.context() as m:
-        py = _cli_run(cli_fx, inputs, sort_out, False, m, capsys)
-    assert nat[0] == py[0]
-    assert nat[1] == py[1] and len(nat[1]) == 1
+    """The CLI's route (native markdup, native BAM encoder) against the
+    JAX package's CLI (regex markdup, Python encoder): the same SAM, or
+    the same records in the same sorted BAM, and the same markdup line,
+    with duplicates marked by the native stage."""
+    log: list = []
+    real = md.NativeMarkDupStage.process
+
+    def spy(self, reads):
+        log.append(type(self).__name__)
+        return real(self, reads)
+    monkeypatch.setattr(md.NativeMarkDupStage, "process", spy)
+    nat = _cli_run(cli_fx, inputs, sort_out, cli.main, "port", capsys)
+    want = _cli_run(cli_fx, inputs, sort_out, jcli.main, "jax", capsys)
+    assert nat[0] == want[0]
+    assert nat[1] == want[1] and len(nat[1]) == 1
     n_dup = int(nat[1][0].split()[2])
     assert n_dup >= (5 if inputs == "se" else 4), nat[1]
-    assert nat[2] == {"native_md"}
-    assert py[2] == ({"regex_md", "py_bam"} if sort_out else {"regex_md"})
+    assert log and set(log) == {"NativeMarkDupStage"}

@@ -6,8 +6,8 @@ tests/test_multidevice.py (a numpy-made 30 kbp genome with 15% repeats,
 96 x 101 bp reads, batches of 48). Also: uneven and tiny shards, a
 worker pool, the sharded seeds and SA values, per-shard counters, the
 span accounting, and a shard failure failing the run. The pipelines here
-take the pure-Python route, whose waves run on every shard at this size
-(tests/test_torch_native.py holds the native route's shards)."""
+run --ext-mode waves with no host drain and no harvester, so that device
+waves run on every shard at this size."""
 
 import time
 
@@ -63,13 +63,15 @@ def fx():
 
 
 def _port(fx, recs, devices, paired=False, n_workers=0, size=48):
-    """(SAM records, stats) of the port's AlignPipeline on `devices`, on
-    the pure-Python route."""
+    """(SAM records, stats) of the port's AlignPipeline on `devices`,
+    with device waves for every task that fits."""
     opt = MemOpt()
     if paired:
         opt.flag |= MEM_F_PE
     pipe = AlignPipeline(opt, fx["fm"], paired=paired, n_workers=n_workers,
-                         devices=devices, aligner_kw=KW, native=False)
+                         devices=devices, ext_mode="waves",
+                         aligner_kw=dict(drain_max=0, harvest_workers=0,
+                                         **KW))
     done = []
     try:
         pipe.run(_batches(_reads(recs, Read), size), done.extend)

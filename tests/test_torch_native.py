@@ -1,11 +1,12 @@
 """The port's native route (csrc/host: _chain, _wave, _region; the
-ops/*_native.py wrappers; BatchAligner/AlignPipeline with native=True)
-on the CPU against the JAX package's pure-Python route, which it takes
-here since its extensions are not built. Inputs are made with numpy from
-a seed and handed to both packages; every comparison is exact: chains,
-regions (extend_waves_packed for both extension modes, with and without
+ops/*_native.py wrappers; BatchAligner/AlignPipeline) on the CPU against
+the JAX package's pure-Python route, which it takes here since its
+extensions are not built. Inputs are made with numpy from a seed and
+handed to both packages; every comparison is exact: chains, regions
+(extend_waves_packed for both extension modes, with and without
 harvester threads, on one device and on two shards), the native SE and
-PE tails, and the failures that must raise (a failed host build, a
+PE tails, the Python tails in the pool (-V and reads without
+qualities), and the failures that must raise (a failed host build, a
 corrupted wave row, a hung device in the extension worker, a validated
 mismatch)."""
 
@@ -31,7 +32,9 @@ from bwa_flow_tpu.ops import chain as jax_chain
 from bwa_flow_tpu.ops import region as jax_region
 from bwa_flow_tpu.ops import smem as jax_smem
 from bwa_flow_tpu.pipeline.batch import BatchAligner as JaxBatchAligner
-from bwa_flow_tpu.utils.opts import MEM_F_ALL, MEM_F_PE, MEM_F_PRIMARY5
+from bwa_flow_tpu.pipeline.dataflow import AlignPipeline as JaxPipeline
+from bwa_flow_tpu.utils.opts import (MEM_F_ALL, MEM_F_PE, MEM_F_PRIMARY5,
+                                     MEM_F_REF_HDR)
 from bwa_flow_tpu.utils.opts import MemOpt as JaxMemOpt
 from bwa_flow_tpu_torch import _build
 from bwa_flow_tpu_torch.cli import parse_insert_override
@@ -39,6 +42,7 @@ from bwa_flow_tpu_torch.index.build import build_index
 from bwa_flow_tpu_torch.io.sam import Read
 from bwa_flow_tpu_torch.ops import chain_native, region_native, wave_native
 from bwa_flow_tpu_torch.pipeline import batch as batchmod
+from bwa_flow_tpu_torch.pipeline import dataflow
 from bwa_flow_tpu_torch.pipeline.batch import BatchAligner, DeviceResultError
 from bwa_flow_tpu_torch.pipeline.dataflow import AlignPipeline
 from bwa_flow_tpu_torch.utils.opts import MemOpt
@@ -95,11 +99,18 @@ def _jax_front(fx, **kw):
 
 @pytest.fixture(scope="module")
 def jax_ref(fx):
-    """The JAX package's chains and pre-dedup regions (its Python
-    route) of fx's reads."""
+    """The JAX package's chains (its BatchAligner's chain_reads) and
+    pre-dedup regions (its mem_chain2aln over each chain) of fx's
+    reads."""
     ba, intvs, sa_flat = _jax_front(fx, wave_cap=32, drain_max=0)
     chains = ba.chain_reads(fx["seqs"], intvs, sa_flat)
-    return dict(chains=chains, regs=ba.extend_waves(fx["seqs"], chains))
+    regs = []
+    for seq, cs in zip(fx["seqs"], chains):
+        regs.append([])
+        for c in cs:
+            jax_region.mem_chain2aln(ba.opt, fx["jfm"], len(seq), seq, c,
+                                     regs[-1])
+    return dict(chains=chains, regs=regs)
 
 
 def _port(fx, **kw):
@@ -194,8 +205,8 @@ def test_chain_batch_equals_jax_chain_reads(fx, jax_ref):
 def test_extend_waves_packed_equals_jax_extend_waves(fx, jax_ref, shapes,
                                                      harvest, ext_mode):
     """extend_waves_packed -> unpack_regs equals the JAX package's
-    extend_waves field for field, the long read spliced in from the
-    Python path. Host mode runs no wave; waves mode without harvesters
+    regions field for field, the long read spliced in from the Python
+    path. Host mode runs no wave; waves mode without harvesters
     and drain runs the device waves on the plain versions; the oversize
     shapes send tasks to the inline scalar kernel."""
     drain = dict(drain_max=0) if ext_mode == "waves" else {}
@@ -218,20 +229,15 @@ def test_extend_waves_packed_equals_jax_extend_waves(fx, jax_ref, shapes,
 
 
 def test_native_align_se_equals_jax_and_python_route(fx):
-    """align_se on the native route equals the JAX package's align_se and
-    the port's pure-Python route."""
+    """align_se on the native route equals the JAX package's align_se."""
     want = [JRead(name=f"r{i}", seq=s, qual="I" * len(s), id=i)
             for i, s in enumerate(fx["seqs"])]
     JaxBatchAligner(JaxMemOpt(), fx["jfm"], wave_cap=32).align_se(want)
-    sams = {}
-    for native in (True, False):
-        reads = [Read(name=f"r{i}", seq=s, qual="I" * len(s), id=i)
-                 for i, s in enumerate(fx["seqs"])]
-        BatchAligner(MemOpt(), fx["fm"], device="cpu", wave_cap=32,
-                     native=native).align_se(reads)
-        sams[native] = [r.sam for r in reads]
-    assert sams[True] == [r.sam for r in want]
-    assert sams[False] == sams[True]
+    reads = [Read(name=f"r{i}", seq=s, qual="I" * len(s), id=i)
+             for i, s in enumerate(fx["seqs"])]
+    BatchAligner(MemOpt(), fx["fm"], device="cpu",
+                 wave_cap=32).align_se(reads)
+    assert [r.sam for r in reads] == [r.sam for r in want]
 
 
 @pytest.fixture(scope="module")
@@ -421,6 +427,71 @@ def test_pipeline_pe_native_equals_jax(pe_fx, ext_mode):
                          aligner_kw=dict(wave_cap=32))
     assert got == [r.sam for r in want]
     assert (st["ext_tasks_device"] == 0) == (ext_mode == "host")
+
+
+@pytest.fixture(scope="module")
+def py_tail_fx():
+    """12 FR pairs (the last one's read2 needs mate rescue) on two
+    contigs whose FASTA headers carry comments (-V's XR tag), indexed by
+    both packages."""
+    rng = np.random.default_rng(0x7A1)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    contigs = [(f"v{i}", f"v{i} chromosome {i}; assembled",
+                bases[rng.integers(0, 4, 3000)].tobytes()) for i in range(2)]
+    return dict(fm=build_index(contigs), jfm=jax_build_index(contigs),
+                seqs=_pairs(np.random.default_rng(0x7A2), contigs, 12))
+
+
+@pytest.mark.parametrize("case", ["fasta", "ref_hdr"])
+@pytest.mark.parametrize("paired", [False, True], ids=["se", "pe"])
+def test_python_tail_inputs_equal_jax(py_tail_fx, paired, case):
+    """The inputs the native tails leave to Python: reads without
+    qualities (FASTA), and -V (MEM_F_REF_HDR, the XR tag). AlignPipeline
+    with a pool of two workers, in two batches, runs their tails in the
+    pool (after the native dedup_batch for pairs) and gives the JAX
+    package's AlignPipeline SAM."""
+    seqs = py_tail_fx["seqs"]
+    opt, jopt = MemOpt(), JaxMemOpt()
+    for o in (opt, jopt):
+        o.flag |= (MEM_F_PE if paired else 0) | \
+            (MEM_F_REF_HDR if case == "ref_hdr" else 0)
+
+    def reads(cls):
+        return [cls(name=f"p{i >> 1}" if paired else f"r{i}", seq=s,
+                    qual=None if case == "fasta" else "I" * len(s), id=i)
+                for i, s in enumerate(seqs)]
+    jpipe = JaxPipeline(jopt, py_tail_fx["jfm"], paired, n_workers=0,
+                        aligner_kw=dict(wave_cap=32))
+    want: list = []
+    try:
+        jr = reads(JRead)
+        jpipe.run(iter([jr[:12], jr[12:]]), want.extend)
+    finally:
+        jpipe.close()
+    pipe = AlignPipeline(opt, py_tail_fx["fm"], paired=paired, n_workers=2,
+                         device="cpu", aligner_kw=dict(wave_cap=32))
+    ran = []
+    pool_map = pipe.pool.map
+
+    def recording_map(fn, parts):
+        ran.append(getattr(fn, "func", fn))
+        return pool_map(fn, parts)
+    pipe.pool.map = recording_map
+    got: list = []
+    try:
+        pr = reads(Read)
+        pipe.run(iter([pr[:12], pr[12:]]), got.extend)
+    finally:
+        pipe.close()
+    assert [r.sam for r in got] == [r.sam for r in want]
+    tail = dataflow._pe_pair_worker if paired else dataflow._se_tail_worker
+    assert ran == [tail, tail]
+    assert pipe.ba.stats["tail_pairs"] == 0
+    sam = "".join(r.sam for r in got)
+    if case == "ref_hdr":
+        assert "\tXR:Z:v0 chromosome 0; assembled" in sam
+    else:
+        assert all(l.split("\t")[10] == "*" for l in sam.splitlines())
 
 
 @pytest.fixture(scope="module")

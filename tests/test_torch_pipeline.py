@@ -2,8 +2,9 @@
 BatchAligner and the golden straight-line aligner: SAM-for-SAM equality
 (the SE tests of tests/test_pipeline_batch.py), and the dataflow
 AlignPipeline, single-end and paired-end, inline and with a worker
-pool. The tests that count device waves take the pure-Python route
-(native=False); tests/test_torch_native.py holds the native route."""
+pool. The tests that count device waves run --ext-mode waves with no
+host drain and no harvester (WAVES), so that the device waves carry
+every task that fits even on these few reads."""
 
 import numpy as np
 import pytest
@@ -27,6 +28,8 @@ CODE = np.full(256, 4, dtype=np.uint8)
 for _i, _ch in enumerate(b"ACGT"):
     CODE[_ch] = _i
 _COMP = np.array([3, 2, 1, 0, 4], np.int32)
+# BatchAligner keywords: device waves for every task that fits
+WAVES = dict(ext_mode="waves", drain_max=0, harvest_workers=0)
 
 
 def _seqs(rng, contigs, n, L=101):
@@ -95,7 +98,7 @@ def test_batch_se_matches_jax_and_golden(idx, case):
     seqs = _seqs(np.random.default_rng(61 + len(case)), contigs, n)
     gold, jax_sam = _jax_sams(fm, seqs, drain_max=0, **kw)
     reads = _reads(seqs, Read)
-    ba = BatchAligner(MemOpt(), fm, device="cpu", native=False, **kw)
+    ba = BatchAligner(MemOpt(), fm, device="cpu", **WAVES, **kw)
     ba.align_se(reads, n_processed=0)
     for got, want_g, want_j in zip(reads, gold, jax_sam):
         assert got.sam == want_j, f"{got.name}:\n{got.sam!r}\n{want_j!r}"
@@ -170,7 +173,7 @@ def test_batch_pe_matches_golden(idx):
     want = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
     golden.align_pe(opt, fm, want, 0)
     reads = [Read(name=f"p{i >> 1}", seq=s, id=i) for i, s in enumerate(seqs)]
-    ba = BatchAligner(opt, fm, wave_cap=32, device="cpu", native=False)
+    ba = BatchAligner(opt, fm, wave_cap=32, device="cpu", **WAVES)
     ba.align_pe(reads, n_processed=0)
     assert [r.sam for r in reads] == [r.sam for r in want]
     assert ba.stats["ext_tasks_device"] > 0
@@ -178,9 +181,9 @@ def test_batch_pe_matches_golden(idx):
 
 def test_align_pipeline_refuses_paired(idx):
     """Paired input is not refused: the PE AlignPipeline on the CPU
-    (per-batch insert size; dedup, rescue and pairing in a pool of two
-    workers) equals golden.align_pe batch by batch. The CLI tests drive
-    the inline tail."""
+    (device waves; per-batch insert size; the native tail's dedup,
+    rescue and pairing, beside a pool of two workers) equals
+    golden.align_pe batch by batch."""
     fm, contigs = idx
     seqs = _pairs(np.random.default_rng(67), contigs, 24)
     opt = MemOpt()
@@ -193,8 +196,9 @@ def test_align_pipeline_refuses_paired(idx):
              for i, s in enumerate(seqs)]
     out = []
     pipe = AlignPipeline(opt, fm, paired=True, n_workers=2,
-                         device="cpu", native=False,
-                         aligner_kw=dict(wave_cap=32))
+                         device="cpu", ext_mode="waves",
+                         aligner_kw=dict(wave_cap=32, drain_max=0,
+                                         harvest_workers=0))
     try:
         n = pipe.run([reads[:24], reads[24:]], out.extend)
     finally:
@@ -205,3 +209,15 @@ def test_align_pipeline_refuses_paired(idx):
         assert got.sam == w.sam, got.name
     assert sum(int(r.sam.split("\t")[1]) & 0x2 > 0 for r in out) >= 40
     assert pipe.ba.stats["ext_tasks_device"] > 0
+
+
+def test_align_pipeline_has_one_route(idx):
+    """AlignPipeline keeps a `native` keyword only for callers that pass
+    True; False, which took the deleted pure-Python route, raises
+    ValueError naming the one route, before a pool or an index is
+    made."""
+    fm, _ = idx
+    pure_python = False
+    with pytest.raises(ValueError, match="one route, the native route"):
+        AlignPipeline(MemOpt(), fm, n_workers=2, device="cpu",
+                      native=pure_python)

@@ -494,7 +494,7 @@ class RecordingAligner(BatchAligner):
         return super().resolve_sa_flat(all_intvs, seed_handle)
 
 
-def _run(fx, monkeypatch, native=True, per=5, devices=None,
+def _run(fx, monkeypatch, ext_mode=None, per=5, devices=None,
          device_timeout=300.0, **attrs):
     cls = type("Aligner", (RecordingAligner,), attrs)
     monkeypatch.setattr(dataflow, "BatchAligner", cls)
@@ -502,7 +502,7 @@ def _run(fx, monkeypatch, native=True, per=5, devices=None,
     batches = [reads[i:i + per] for i in range(0, len(reads), per)]
     out = []
     pipe = dataflow.AlignPipeline(MemOpt(), fx["fm"], device="cpu",
-                                  devices=devices, native=native,
+                                  devices=devices, ext_mode=ext_mode,
                                   device_timeout=device_timeout,
                                   aligner_kw=dict(wave_cap=32))
     try:
@@ -515,10 +515,10 @@ def _run(fx, monkeypatch, native=True, per=5, devices=None,
 HOOKS = ("post_redo", "post_dispatch", "late")
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "python"])
+@pytest.mark.parametrize("ext_mode", ["host", "waves"])
 @pytest.mark.parametrize("hook", ["post_redo", "post_dispatch", "late"])
 def test_next_batch_enqueued_once_by_the_first_hook(pipe_fx, monkeypatch,
-                                                    native, hook):
+                                                    ext_mode, hook):
     """Each batch's seed program is dispatched once and in order. The
     dense-SA path enqueues the next one from the seed collect's hook,
     the probe path (no dense SA) from the SA probes' hook; with those
@@ -529,7 +529,7 @@ def test_next_batch_enqueued_once_by_the_first_hook(pipe_fx, monkeypatch,
         monkeypatch.setenv("BWA_TPU_DENSE_SA_MAX", "0")
     allow = {"post_redo": ("post_redo",),
              "post_dispatch": ("post_dispatch",), "late": ()}[hook]
-    ba, batches, out = _run(pipe_fx, monkeypatch, native, allow=allow)
+    ba, batches, out = _run(pipe_fx, monkeypatch, ext_mode, allow=allow)
     assert (ba.dfm.sa_dense is None) == (hook == "post_dispatch")
     assert [s for s, _ in ba.log] == [bytes(b[0].seq) for b in batches]
     assert all(t == "MainThread" for _, t in ba.log)
@@ -544,7 +544,7 @@ def test_next_batch_enqueued_from_a_shard_thread(pipe_fx, monkeypatch):
     """With two shards the seed collect runs in a thread a shard; the
     hook fires once, from the shard that queues its last dependent work
     last, and the SAM is unchanged."""
-    ba, batches, out = _run(pipe_fx, monkeypatch, True,
+    ba, batches, out = _run(pipe_fx, monkeypatch,
                             devices=["cpu", "cpu"])
     assert [s for s, _ in ba.log] == [bytes(b[0].seq) for b in batches]
     assert all(t.startswith("shard") for _, t in ba.log[1:])
@@ -567,7 +567,7 @@ def test_failed_enqueue_ends_the_run(pipe_fx, monkeypatch, where):
         return real(self, h)
     monkeypatch.setattr(RecordingAligner, "seeds_collect", counted)
     with pytest.raises(RuntimeError, match="device lost at dispatch 3"):
-        _run(pipe_fx, monkeypatch, True, fail_at=3, fail=err,
+        _run(pipe_fx, monkeypatch, fail_at=3, fail=err,
              devices=["cpu", "cpu"] if where == "shard" else None)
     ba = RecordingAligner.last
     assert len(collects) == 2 and len(ba.log) == 3
@@ -583,7 +583,7 @@ def test_adaptive_downgrade_enqueues_late(pipe_fx, monkeypatch):
     monkeypatch.setattr(dataflow.AlignPipeline, "_seed_span",
                         lambda self, dt, _real=dataflow.AlignPipeline.
                         _seed_span: _real(self, next(spans)))
-    ba, batches, out = _run(pipe_fx, monkeypatch, True, per=4)
+    ba, batches, out = _run(pipe_fx, monkeypatch, per=4)
     # batches 4 and 5 start with two slow spans behind them; batch 5 is
     # the one enqueued late (by batch 4's pipeline call)
     assert len(batches) == 5
@@ -611,7 +611,7 @@ def test_stalled_seed_fetch_exits_within_one_timeout(pipe_fx, monkeypatch):
         return real(self, h)
     monkeypatch.setattr(RecordingAligner, "seeds_collect", stall)
     with pytest.raises(TimeoutError):
-        _run(pipe_fx, monkeypatch, True, device_timeout=timeout)
+        _run(pipe_fx, monkeypatch, device_timeout=timeout)
     dt = time.monotonic() - stalled[0]
     assert timeout <= dt < timeout + 1.0, dt
     assert len(RecordingAligner.last.log) == 2
@@ -654,7 +654,7 @@ def test_seed_s_counts_each_dispatch_once(pipe_fx, monkeypatch):
     monkeypatch.setattr(RecordingAligner, "seeds_dispatch",
                         timed("dispatch", RecordingAligner.seeds_dispatch))
     monkeypatch.setattr(RecordingAligner, "seeds_collect", flagged)
-    ba, batches, out = _run(pipe_fx, monkeypatch, True, per=7)
+    ba, batches, out = _run(pipe_fx, monkeypatch, per=7)
     assert len(batches) == 3 and ba.stats["enqueue_post_redo"] == 2
     assert walls["nested"] >= 2 * D
     seed_s = ba.stats["seed_s"]

@@ -131,7 +131,7 @@ def test_devtrace_marks_every_program_span(monkeypatch):
     names = _program_spans()
     assert set(PE_SPANS) - {k for k in PE_SPANS if k.startswith("tail.")} \
         <= names
-    assert {"sa.fetch", "chain", "extend_waves", "wave.fetch"} <= names
+    assert {"sa.fetch", "extend_waves", "wave.fetch"} <= names
     marks = _Marks()
     monkeypatch.setattr(torch.profiler, "record_function", marks)
     tr = Tracer()
@@ -272,8 +272,7 @@ def test_pe_pipeline_fills_every_span_and_counter(world, tmp_path,
     monkeypatch.setattr(torch.profiler, "record_function", marks)
     undo = _devtrace().annotate_spans(GLOBAL)
     tr0 = dict(GLOBAL.totals)
-    pipe = AlignPipeline(opt, world["fm"], paired=True, device="cpu",
-                         native=True)
+    pipe = AlignPipeline(opt, world["fm"], paired=True, device="cpu")
     out = []
     try:
         pipe.run(read_batches(str(tmp_path / "r1.fq"),

@@ -4,8 +4,8 @@ injections on inputs made by numpy from a seed and given to both
 packages. Where the JAX package degrades to the host (device_ok =
 False, bit-identical SAM), the port raises (DeviceResultError,
 TimeoutError, the dispatch's own error); clean runs equal the JAX
-package's SAM exactly. These tests hold the pure-Python route
-(native=False); tests/test_torch_native.py holds the native route's."""
+package's SAM exactly. The tests that need device waves run --ext-mode
+waves with no host drain and no harvester (WAVES)."""
 
 import time
 
@@ -33,6 +33,8 @@ CODE = np.full(256, 4, np.uint8)
 for _i, _c in enumerate(b"ACGT"):
     CODE[_c] = _i
 _COMP = np.array([3, 2, 1, 0, 4], np.uint8)
+# BatchAligner keywords: device waves for every task that fits
+WAVES = dict(ext_mode="waves", drain_max=0, harvest_workers=0)
 
 
 @pytest.fixture(scope="module")
@@ -79,8 +81,8 @@ def _reads(seqs, cls):
 
 
 def _corrupt_scores(real, delta):
-    """extend_waves whose regions come back with score + delta (the
-    wrong-result injection of tests/test_validation.py)."""
+    """The JAX package's extend_waves whose regions come back with score
+    + delta (the wrong-result injection of tests/test_validation.py)."""
     def corrupted(seqs, chains, *a, **k):
         regs = real(seqs, chains, *a, **k)
         for rr in regs:
@@ -90,8 +92,19 @@ def _corrupt_scores(real, delta):
     return corrupted
 
 
+def _corrupt_packed(real, delta):
+    """The port's extend_waves_packed whose packed regions come back with
+    score (column 5) + delta: the same injection."""
+    def corrupted(*a, **k):
+        rows, frac, off = real(*a, **k)
+        rows = rows.copy()
+        rows[:, 5] += delta
+        return rows, frac, off
+    return corrupted
+
+
 def _run_pipe(fm, reads, batches, **kw):
-    pipe = AlignPipeline(MemOpt(), fm, device="cpu", native=False,
+    pipe = AlignPipeline(MemOpt(), fm, device="cpu",
                          aligner_kw=dict(wave_cap=32), **kw)
     done = []
     try:
@@ -114,7 +127,7 @@ def test_clean_validation_equals_jax_sam(fx):
     assert jba.device_ok and jba.stats["validations"] == 1
     reads = _reads(fx["se"], Read)
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, validate_every=1,
-                      device="cpu", native=False)
+                      device="cpu")
     ba.align_se(reads)
     assert [r.sam for r in reads] == [r.sam for r in ja] == fx["want"]
     assert ba.stats["validations"] == 1
@@ -146,8 +159,8 @@ def test_raising_dispatch_propagates(fx, monkeypatch, where):
         if where == "pipeline":
             _run_pipe(fx["fm"], _reads(fx["se"], Read), 6)
         else:
-            BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
-                         native=False).align_se(_reads(fx["se"], Read))
+            BatchAligner(MemOpt(), fx["fm"], wave_cap=32,
+                         device="cpu").align_se(_reads(fx["se"], Read))
 
 
 def test_corrupted_regions_raise_naming_read_and_fields(fx, monkeypatch):
@@ -164,9 +177,9 @@ def test_corrupted_regions_raise_naming_read_and_fields(fx, monkeypatch):
     jba.align_se(ja)
     assert not jba.device_ok and [r.sam for r in ja] == fx["want"]
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, validate_every=1,
-                      validate_sample=6, device="cpu", native=False)
-    monkeypatch.setattr(ba, "extend_waves",
-                        _corrupt_scores(ba.extend_waves, 7))
+                      validate_sample=6, device="cpu")
+    monkeypatch.setattr(ba, "extend_waves_packed",
+                        _corrupt_packed(ba.extend_waves_packed, 7))
     with pytest.raises(DeviceResultError) as e:
         ba.align_se(_reads(fx["se"], Read))
     msg = str(e.value)
@@ -180,11 +193,10 @@ def test_pipeline_corrupted_regions_raise(fx, monkeypatch):
     """The same injection on the AlignPipeline path (its own sample, on
     the pre-dedup regions; tests/test_validation.py:135): raises before
     any batch is emitted."""
-    monkeypatch.setattr(BatchAligner, "extend_waves", _corrupt_scores(
-        BatchAligner.extend_waves, 3))
+    monkeypatch.setattr(BatchAligner, "extend_waves_packed",
+                        _corrupt_packed(BatchAligner.extend_waves_packed, 3))
     emitted = []
-    pipe = AlignPipeline(MemOpt(), fx["fm"], device="cpu",
-                         native=False, validate_every=1,
+    pipe = AlignPipeline(MemOpt(), fx["fm"], device="cpu", validate_every=1,
                          validate_sample=12, aligner_kw=dict(wave_cap=32))
     try:
         with pytest.raises(DeviceResultError, match=r"read 0 \(r0\) of "
@@ -200,11 +212,11 @@ def test_corrupt_wave_row_raises_without_validation(fx, monkeypatch):
     default validate_every=0: the structural check raises naming the
     read and the field (tests/test_validation.py:178)."""
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
-                      native=False)
+                      **WAVES)
     real = ba.fetch
 
-    def corrupt(t):
-        out = real(t)
+    def corrupt(t, *a):
+        out = real(t, *a)
         if out.ndim == 2 and out.shape[0] == 12:
             out = out.copy()
             out[1, :] = -3
@@ -268,7 +280,7 @@ def test_clean_waves_pass_structural_check(fx, monkeypatch, paired):
     if paired:
         opt.flag |= MEM_F_PE
     seqs = fx["pe"] if paired else fx["se"]
-    ba = BatchAligner(opt, fx["fm"], wave_cap=8, device="cpu", native=False)
+    ba = BatchAligner(opt, fx["fm"], wave_cap=8, device="cpu", **WAVES)
     reads = _reads(seqs, Read)
     if paired:
         for r in reads:
@@ -298,7 +310,6 @@ def test_stalled_wait_times_out(fx, monkeypatch):
     """A device that never finishes (the ready-check replaced) raises
     TimeoutError within device_timeout + 2 s."""
     ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
-                      native=False,
                       device_timeout=0.5)
     monkeypatch.setattr(ba, "_ready", lambda device: (lambda: False))
     t0 = time.monotonic()
@@ -320,7 +331,6 @@ def test_zero_timeout_never_polls(fx, monkeypatch):
         polls.clear()
         reads = _reads(fx["se"], Read)
         ba = BatchAligner(MemOpt(), fx["fm"], wave_cap=32, device="cpu",
-                          native=False,
                           device_timeout=timeout)
         monkeypatch.setattr(ba, "_ready", ready)
         ba.align_se(reads)

@@ -94,8 +94,7 @@ def run_path(prefix: str, cfg: dict, mix: dict, fq: tuple, wide: bool,
         opt = MemOpt()
         opt.flag |= MEM_F_PE
         markdup = make_markdup_stage(fm, ignore_unmated=True)
-        pipe = AlignPipeline(opt, fm, paired=True, device=device,
-                             native=True)
+        pipe = AlignPipeline(opt, fm, paired=True, device=device)
         sam: list = []
 
         def emit(chunk):
